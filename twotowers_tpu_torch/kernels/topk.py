@@ -1,0 +1,121 @@
+"""Wrapper of the fused score + top-k CUDA kernel (``csrc/score_topk.cu``).
+
+The Hopper counterpart of ``twotowers_tpu/kernels/pallas_topk.py``. It
+computes exactly ``ops.topk_score.score_topk_reference``: queries cast to
+the docs' dtype, products summed in float32, rows at or past ``n_docs``
+scored -1e30, results best first with equal scores to the lower index.
+
+The kernel takes f32 or bf16 docs, any ``N >= 1`` and ``Q >= 1``,
+``1 <= k <= min(256, N)`` and ``D <= 1024``; outside those limits the
+wrapper raises ``ValueError`` and hands nothing to the plain version. It
+launches on the current stream, allocates outputs and scratch with
+``torch.empty``, and raises if the launch returns a CUDA error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import build
+
+MAX_K = 256
+MAX_DIM = 1024
+MAX_SPLITS = 1024   # score_topk.cu:MAX_SPLITS
+TILE_N = 128        # score_topk.cu:TN, doc rows per tile
+BLOCKS_PER_SM = 8   # pass-1 blocks to aim for on each SM
+
+# kernel launches so far; a run reads it to show it went through the kernel
+LAUNCHES = 0
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def plan(n_queries: int, n: int, sm_count: int) -> Tuple[int, int, int]:
+    """(rows_per_thread, n_splits, split_len) for a call.
+
+    A pass-1 block holds 4 queries when there are at most 4, else 32. The
+    doc axis is cut into enough splits, each a whole number of tiles, that
+    the grid has about ``BLOCKS_PER_SM`` blocks on every SM, so that one
+    query still fills the card.
+    """
+    rows = 1 if n_queries <= 4 else 8
+    q_blocks = -(-n_queries // (4 * rows))
+    tiles = -(-n // TILE_N)
+    want = -(-sm_count * BLOCKS_PER_SM // q_blocks)
+    n_splits = max(1, min(want, tiles, MAX_SPLITS))
+    split_len = -(-tiles // n_splits) * TILE_N
+    return rows, -(-n // split_len), split_len
+
+
+def check_args(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int) -> None:
+    """Raise ValueError for a call the kernel does not take."""
+    if doc_matrix.dim() != 2 or queries.dim() != 2:
+        raise ValueError("score_topk: docs must be (N, D) and queries (Q, D)")
+    n, dim = doc_matrix.shape
+    if queries.shape[1] != dim:
+        raise ValueError(f"score_topk: queries have D={queries.shape[1]}, docs D={dim}")
+    if doc_matrix.dtype not in _DTYPES:
+        raise ValueError(f"score_topk: docs must be float32 or bfloat16, got {doc_matrix.dtype}")
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"score_topk: the kernel takes 1 <= D <= {MAX_DIM}, got D={dim}")
+    if not 1 <= n < 2**31:
+        raise ValueError(f"score_topk: the kernel takes 1 <= N < 2**31, got N={n}")
+    if queries.shape[0] < 1:
+        raise ValueError("score_topk: the kernel takes Q >= 1")
+    if not 1 <= k <= min(MAX_K, n):
+        raise ValueError(f"score_topk: the kernel takes 1 <= k <= min({MAX_K}, N={n}), got k={k}")
+    if not doc_matrix.is_contiguous():
+        raise ValueError("score_topk: docs must be contiguous")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("score_topk")
+    fn = lib.score_topk_launch
+    if fn.argtypes is None:
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64, i32,
+                       ptr, ptr, ptr, ptr, ptr]
+        fn.restype = i32
+    return lib
+
+
+def score_topk_cuda(
+    doc_matrix: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    n_docs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of ``queries @ doc_matrix.T`` on the card: (Q, k) float32
+    scores and int32 indices."""
+    global LAUNCHES
+    check_args(doc_matrix, queries, k)
+    device = doc_matrix.device
+    if device.type != "cuda" or queries.device != device:
+        raise ValueError("score_topk kernel: docs and queries must be on one CUDA device, "
+                         f"got {device} and {queries.device}")
+    n, dim = doc_matrix.shape
+    n_docs = n if n_docs is None else int(n_docs)
+    queries = queries.to(doc_matrix.dtype).contiguous()
+    n_queries = queries.shape[0]
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    rows, n_splits, split_len = plan(n_queries, n, sm_count)
+
+    cand_v = torch.empty((n_queries, n_splits, k), dtype=torch.float32, device=device)
+    cand_i = torch.empty((n_queries, n_splits, k), dtype=torch.int32, device=device)
+    out_v = torch.empty((n_queries, k), dtype=torch.float32, device=device)
+    out_i = torch.empty((n_queries, k), dtype=torch.int32, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.score_topk_launch(
+            doc_matrix.data_ptr(), queries.data_ptr(),
+            int(doc_matrix.dtype == torch.bfloat16), n, n_queries, dim, k, n_docs,
+            n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score_topk kernel launch failed with cudaError_t {err}")
+    LAUNCHES += 1
+    return out_v, out_i
