@@ -2,8 +2,12 @@
 
 The counterpart of ``twotowers_tpu/models/embeddings.py`` for the ``lookup``
 kind: an f32 ``(vocab_size, dim)`` table, N(0, 1) with a zero padding row.
-The other kinds (``positional`` and the pretrained sources) come with the
-training slice.
+At a word-scale vocabulary (above ``_ONE_HOT_MAX_VOCAB``) the lookup is
+``GatherScatterGrad``, the counterpart of the JAX package's
+``_take_scatter_grad``: the gather kernel forward, the scatter-add kernel
+backward. A frozen table (``trainable: false``) gets no gradient and is
+kept out of the optimizer. The other kinds (``positional`` and the
+pretrained sources) are not ported yet (ROADMAP.md §1 item 4).
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.gather import gather_rows
+from ..kernels.scatter_add import scatter_add_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +59,38 @@ def spec_from_config(config: Dict[str, Any], vocab_size: int) -> EmbeddingSpec:
 
 # At or below this vocab size the JAX package computes the lookup as a
 # HIGHEST-precision one_hot(ids) @ table, so that its backward is a matmul.
-# For ids in range that selects each row exactly, so the forward here
-# gathers in both branches and gives the same bits in f32 and bf16; the
-# threshold stays for the training slice's backward.
+# For ids in range that selects each row exactly, so the forward here is
+# F.embedding, with the same bits in f32 and bf16, and its backward sums
+# the f32 gradient rows. Above it the JAX package gathers and routes the
+# backward through its scatter-add kernel; so does GatherScatterGrad.
 _ONE_HOT_MAX_VOCAB = 512
+
+
+class GatherScatterGrad(torch.autograd.Function):
+    """``table[ids].to(dtype)`` whose gradient is the scatter-add kernel.
+
+    Forward: the gather kernel, fused with the cast to the compute dtype.
+    Backward: the incoming rows (in the compute dtype) are widened and
+    summed in f32 per table row by the scatter-add kernel, then cast to the
+    table's dtype, as ``_take_bwd`` does. On CPU tensors both are their
+    plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        flat = ids.reshape(-1).to(torch.int32)
+        ctx.save_for_backward(flat)
+        ctx.vocab = table.shape[0]
+        ctx.table_dtype = table.dtype
+        out = gather_rows(table, flat, dtype)
+        return out.reshape(*ids.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (flat,) = ctx.saved_tensors
+        d_table = scatter_add_rows(grad.reshape(-1, grad.shape[-1]), flat, ctx.vocab,
+                                   ctx.table_dtype)
+        return d_table, None, None
 
 
 class Embedding(nn.Module):
@@ -81,4 +116,6 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """(..., seq_len) ids -> (..., seq_len, dim) vectors in ``dtype``."""
-        return F.embedding(ids, self.table).to(dtype)
+        if self.spec.vocab_size <= _ONE_HOT_MAX_VOCAB:
+            return F.embedding(ids, self.table).to(dtype)
+        return GatherScatterGrad.apply(self.table, ids, dtype)

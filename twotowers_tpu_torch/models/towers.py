@@ -87,7 +87,9 @@ class MeanTower(nn.Module):
         _init_linear(self.fc1, generator)
         _init_linear(self.fc2, generator)
 
-    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+    def forward(self, pooled: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        del generator  # no dropout in this tower
         h = torch.relu(self.fc1(pooled.float()))
         return l2_normalize(self.fc2(h))
 
@@ -95,14 +97,16 @@ class MeanTower(nn.Module):
 @TOWER_REGISTRY.register("avg_pool")
 class AvgPoolTower(nn.Module):
     """The pooled vector, projected (Linear -> Dropout -> LayerNorm) only
-    when hidden_dim != embedding_dim, then L2-normalised."""
+    when hidden_dim != embedding_dim, then L2-normalised. In training mode
+    the dropout mask is drawn from the generator the caller passes (the
+    train state's), as the JAX package draws it from the step's key."""
 
     def __init__(self, spec: TowerSpec):
         super().__init__()
         self.proj: Optional[nn.Linear] = None
+        self.dropout = spec.dropout
         if spec.hidden_dim != spec.embedding_dim:
             self.proj = _linear(spec.embedding_dim, spec.hidden_dim)
-            self.dropout = nn.Dropout(spec.dropout)
             self.norm = nn.LayerNorm(spec.hidden_dim, eps=1e-5)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -110,10 +114,16 @@ class AvgPoolTower(nn.Module):
             _init_linear(self.proj, generator)
             self.norm.reset_parameters()
 
-    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+    def forward(self, pooled: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         out = pooled.float()
         if self.proj is not None:
-            out = self.norm(self.dropout(self.proj(out)))
+            out = self.proj(out)
+            if self.training and self.dropout > 0.0:
+                keep = 1.0 - self.dropout
+                mask = torch.rand(out.shape, generator=generator, device=out.device) < keep
+                out = torch.where(mask, out / keep, 0.0)
+            out = self.norm(out)
         return l2_normalize(out)
 
 
@@ -173,13 +183,15 @@ class TwoTower(nn.Module):
         if self.document_tower is not None:
             self.document_tower.reset_parameters(generator)
 
-    def encode(self, ids: torch.Tensor, tower: str = "query") -> torch.Tensor:
-        """(batch, seq_len) ids, PAD=0 -> (batch, output_dim) f32 unit vectors."""
+    def encode(self, ids: torch.Tensor, tower: str = "query",
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(batch, seq_len) ids, PAD=0 -> (batch, output_dim) f32 unit vectors.
+        ``generator`` draws the dropout mask of a tower in training mode."""
         embedded = self.embedding(ids, self.spec.compute_dtype)
         pooled = masked_mean_pool(embedded, ids)
         if tower == "query" or self.document_tower is None:
-            return self.query_tower(pooled)
-        return self.document_tower(pooled)
+            return self.query_tower(pooled, generator)
+        return self.document_tower(pooled, generator)
 
     def forward(self, query_ids: torch.Tensor,
                 document_ids: Optional[torch.Tensor] = None,

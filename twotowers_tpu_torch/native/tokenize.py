@@ -1,4 +1,4 @@
-"""ctypes binding for the native batch-tokenization core (char path).
+"""ctypes bindings for the native batch-tokenization core.
 
 A copy of ``twotowers_tpu/native/tokenize.py`` with one change: the library
 is built into the package's build directory (``kernels/build.py:BUILD_DIR``,
@@ -6,6 +6,11 @@ listed in ``.gitignore``), not next to its source. It compiles
 ``tokenizer_core.cpp`` on first use, rebuilds when the source is newer than
 the library, and degrades gracefully: without a C++ compiler the caller
 keeps its pure-Python path.
+
+Word-vocab hashing: FNV-1a over the lowercased UTF-8 bytes, matched exactly
+between this wrapper (which calls the C ``fnv1a64`` to build the table) and
+the C encoder; collisions map distinct words to one id, at ~64-bit
+improbability.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -77,6 +82,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
         ]
         lib.char_encode_batch.restype = None
+        lib.word_encode_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_uint64),
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.word_encode_batch.restype = None
+        lib.fnv1a64.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+        lib.fnv1a64.restype = ctypes.c_uint64
         _lib = lib
         return _lib
 
@@ -103,6 +117,60 @@ def char_encode_batch(texts: Sequence[str], lut: np.ndarray, max_len: int) -> Op
     lib.char_encode_batch(
         _ptr(codepoints, ctypes.c_uint32), _ptr(offsets, ctypes.c_int64),
         len(texts), _ptr(lut, ctypes.c_int32), len(lut), max_len,
+        _ptr(out, ctypes.c_int32),
+    )
+    return out
+
+
+class WordVocabTable:
+    """Open-addressing (hash, id) table shared with the C encoder."""
+
+    def __init__(self, word_to_index: Dict[str, int]):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native core unavailable")
+        n = max(len(word_to_index), 1)
+        capacity = 1
+        while capacity < 2 * n:
+            capacity *= 2
+        self.capacity = capacity
+        self.hashes = np.zeros(capacity, dtype=np.uint64)
+        self.ids = np.zeros(capacity, dtype=np.int32)
+        mask = capacity - 1
+        for word, idx in word_to_index.items():
+            if word in ("<PAD>", "<UNK>"):
+                continue
+            data = np.frombuffer(word.encode("utf-8"), dtype=np.uint8)
+            if len(data) > 256:
+                data = data[:256]
+            h = int(lib.fnv1a64(_ptr(np.ascontiguousarray(data), ctypes.c_uint8),
+                                len(data))) or 1
+            slot = h & mask
+            while self.hashes[slot] != 0 and self.hashes[slot] != h:
+                slot = (slot + 1) & mask
+            self.hashes[slot] = h
+            self.ids[slot] = idx
+
+
+def word_encode_batch(
+    texts: Sequence[str], table: WordVocabTable, max_len: int,
+    *, unk_id: int = 1, lowercase: bool = True,
+) -> Optional[np.ndarray]:
+    """Native word encoding; None if the core is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    encoded = [t.encode("utf-8") for t in texts]
+    joined = b"".join(encoded)
+    utf8 = np.frombuffer(joined, dtype=np.uint8)
+    offsets = np.zeros(len(texts) + 1, dtype=np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    out = np.empty((len(texts), max_len), dtype=np.int32)
+    lib.word_encode_batch(
+        _ptr(utf8 if len(utf8) else np.zeros(1, np.uint8), ctypes.c_uint8),
+        _ptr(offsets, ctypes.c_int64), len(texts),
+        _ptr(table.hashes, ctypes.c_uint64), _ptr(table.ids, ctypes.c_int32),
+        table.capacity, unk_id, max_len, int(lowercase),
         _ptr(out, ctypes.c_int32),
     )
     return out

@@ -1,7 +1,7 @@
 """Tensor ops: pooling / normalisation and dense score + top-k."""
 
 from .core import cosine_similarity, l2_normalize, masked_mean_pool
-from .topk_score import score_topk, score_topk_reference
+from .topk_score import score_topk, score_topk_reference, score_topk_torch
 
 __all__ = [
     "cosine_similarity",
@@ -9,4 +9,5 @@ __all__ = [
     "masked_mean_pool",
     "score_topk",
     "score_topk_reference",
+    "score_topk_torch",
 ]

@@ -2,9 +2,10 @@
 
 from .base import PAD_ID, TOKENIZER_REGISTRY, BaseTokenizer, build_tokenizer
 from .char import CharTokenizer
+from .word import WordTokenizer
 
 # tokenizer types of the JAX package that this package has not ported yet
-_NOT_PORTED = {"word", "bpe", "wordpiece"}
+_NOT_PORTED = {"bpe", "wordpiece"}
 
 
 def tokenizer_from_state(state: dict) -> BaseTokenizer:
@@ -22,6 +23,7 @@ __all__ = [
     "TOKENIZER_REGISTRY",
     "BaseTokenizer",
     "CharTokenizer",
+    "WordTokenizer",
     "build_tokenizer",
     "tokenizer_from_state",
 ]
