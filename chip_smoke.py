@@ -8,10 +8,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. device  -- the card's name and power limit; no card is a failure.
 2. build   -- every CUDA source of the port (one nvcc each, started
               together) and the native tokenizer, from this checkout.
-3. kernels -- the score + top-k kernel against its plain PyTorch version on
-              the card at the serve path's shapes and at edge cases, then
-              timed beside the plain version, a library yardstick and its
-              bound.
+3. kernels -- the score + top-k kernel's Q >= 5 block (shared-memory
+              bytes and blocks per SM at k=10 and k=256), then the kernel
+              against its plain PyTorch version on the card at the serve
+              path's shapes and at edge cases, then timed beside the plain
+              version, a library yardstick and its bound.
 4. serve   -- the default config (char tokenizer, max_len 64, lookup
               embedding 64, mean tower 128, f32) at full width with random
               weights from the seed, over ``--n-docs`` synthetic texts:
@@ -174,11 +175,17 @@ def topk_bound(n, dim, q, k, dtype):
 
 
 def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
-    from twotowers_tpu_torch.kernels.topk import score_topk_cuda
+    from twotowers_tpu_torch.kernels.topk import score_topk_cuda, tiles_occupancy
     from twotowers_tpu_torch.ops.topk_score import score_topk_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        occupancy = {f"k{k}": dict(zip(("smem_bytes", "blocks_per_sm"),
+                                       tiles_occupancy(dev, dtype, k))) for k in (10, 256)}
+        emit("kernels", case="Q >= 5 pass-1 block", dtype=str(dtype), **occupancy)
+        if occupancy["k10"]["blocks_per_sm"] < 2:
+            raise AssertionError(f"Q >= 5 pass 1: fewer than 2 blocks per SM at k=10: {occupancy}")
 
     def unit(*shape):
         x = torch.randn(*shape, device=dev, generator=gen)
@@ -204,6 +211,11 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
         errs.append(check(f"main bf16 q{q}", docs_bf16, qs, 10))
     ragged = n_docs - 17
     check("ragged n", docs[:ragged], queries[32], 10)
+    check("q33 n-1", docs[:n_docs - 1], unit(33, 128), 10)
+    docs100, q100 = unit(n_docs, 100), unit(257, 100)
+    check("q257 d100 f32", docs100, q100, 10)
+    check("q257 d100 bf16 (scalar staging)", docs100.bfloat16(), q100, 10)
+    del docs100
     padded = docs[:8192].clone()
     padded[5000:] = 50.0  # rows past n_docs would win if not masked
     check("n_docs < N", padded, queries[32], 10, n_real=5000)
@@ -225,7 +237,7 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
 
     timings = {}
     for (q, dtype) in [(1, torch.float32), (32, torch.float32), (256, torch.float32),
-                       (1, torch.bfloat16), (256, torch.bfloat16)]:
+                       (1, torch.bfloat16), (32, torch.bfloat16), (256, torch.bfloat16)]:
         d = docs if dtype == torch.float32 else docs_bf16
         qs = queries[q]
         bound, bound_by = topk_bound(n_docs, 128, q, 10, dtype)
@@ -483,6 +495,17 @@ def embed_kernels_phase(card: dict, seed: int) -> dict:
                                  f"(max err {err})")
         emit("kernels", kernel="gather_rows", case=case, n=ids.shape[0], d=tab.shape[1],
              table=str(tab.dtype), out=str(out_dtype), max_abs_err=err, bit_equal=True)
+
+    # the bounds at the experiments' shapes (#4-#6 of PERF.md's table): each
+    # input read once, each output written once
+    table_bytes = WORD_VOCAB * WORD_EMB * 4
+    emit("kernels", case="bounds at the experiments' shapes", bound_by="bytes", bound_ms={
+        "#4 scatter N 1,048,576 f32 g": bytes_bound(MAIN_ROWS * (WORD_EMB * 4 + 4)
+                                                    + table_bytes)[0],
+        "#5 scatter N 3,145,728 f32 g": bytes_bound(3 * MAIN_ROWS * (WORD_EMB * 4 + 4)
+                                                    + table_bytes)[0],
+        "#6 gather N 3,145,728 bf16 -> bf16": bytes_bound(3 * MAIN_ROWS * (4 + WORD_EMB * 2)
+                                                          + table_bytes // 2)[0]})
 
     # times at the main path's shape: bf16 g rows of one encode into the f32
     # table; the f32 table gathered into the bf16 compute dtype. No single

@@ -71,17 +71,42 @@ def test_kernel_refuses_cpu_tensors():
     assert topk.LAUNCHES == before
 
 
-@pytest.mark.parametrize("q,n", [(1, 1_000_000), (32, 1_000_000), (256, 1_000_000),
-                                 (256, 999_983), (3, 1000), (5000, 200), (1, 1)])
+PLAN_CASES = [(1, 1_000_000), (32, 1_000_000), (256, 1_000_000), (256, 999_983), (3, 1000),
+              (5000, 200), (1, 1)]
+PLAN_CASES += [(q, n) for q in (5, 31, 33, 64, 255, 257, 5000)
+               for n in (1_000_000, 999_983, 200) if (q, n) not in PLAN_CASES]
+
+
+@pytest.mark.parametrize("q,n", PLAN_CASES)
 def test_plan_fills_the_card_and_covers_the_docs(q, n):
-    rows, n_splits, split_len = topk.plan(q, n, sm_count=132)
+    rows, n_splits, split_len = topk.plan(q, n, sm_count=132, blocks_per_sm=2)
+    tile = topk.TILE_N if q <= 4 else topk.BATCH_TILE_N
     q_blocks = -(-q // (4 * rows))
     assert rows == (1 if q <= 4 else 8)
-    assert split_len % topk.TILE_N == 0
+    assert split_len % tile == 0
     assert (n_splits - 1) * split_len < n <= n_splits * split_len
     assert 1 <= n_splits <= topk.MAX_SPLITS
     # enough blocks for every SM, unless the docs run out of tiles first
-    assert q_blocks * n_splits >= min(132, q_blocks * -(-n // topk.TILE_N))
+    assert q_blocks * n_splits >= min(132, q_blocks * -(-n // tile))
+
+
+@pytest.mark.parametrize("q,blocks_per_sm,splits", [(256, 1, 17), (256, 2, 33), (256, 3, 50),
+                                                     (256, 4, 66), (33, 3, 196), (5, 3, 391)])
+def test_plan_gives_a_batch_one_wave_of_splits(q, blocks_per_sm, splits):
+    """About as many splits as put ``blocks_per_sm`` blocks of 32 queries on
+    each of 132 SMs at once: one wave, short of a query block at most."""
+    rows, n_splits, split_len = topk.plan(q, 1_000_000, 132, blocks_per_sm)
+    q_blocks = -(-q // 32)
+    assert (rows, n_splits) == (8, splits)
+    assert q_blocks * n_splits < 132 * blocks_per_sm + q_blocks
+    assert split_len == -(-(-(-1_000_000 // 256)) // splits) * 256
+
+
+@pytest.mark.parametrize("q", [1, 2, 3, 4])
+def test_plan_of_up_to_four_queries_ignores_the_batch_occupancy(q):
+    want = topk.plan(q, 1_000_000, 132, 2)
+    assert want[0] == 1 and want[2] % topk.TILE_N == 0
+    assert all(topk.plan(q, 1_000_000, 132, b) == want for b in (0, 1, 5))
 
 
 @pytest.fixture
@@ -105,3 +130,42 @@ def test_kernel_matches_plain_version(cuda, name, dtype):
     want_s, want_i = score_topk_reference(docs, queries, k, n_docs)
     torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+
+
+EDGE_CASES = [(q, dim, dtype, k, off) for q in (5, 33, 257) for dim in (1, 100, 129, 1024)
+              for dtype in (torch.float32, torch.bfloat16) for k in (1, 64, 256)
+              for off in (-1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,dim,dtype,k,off", EDGE_CASES)
+def test_batch_kernel_crosses_tile_edges(cuda, q, dim, dtype, k, off):
+    """The Q >= 5 pass at N = 256 m +- 1 (a ragged last tile), D across the
+    16-deep chunks (D=100 in bf16 and D=1, 129 take the scalar staging),
+    k up to 256. Integer-valued inputs sum exactly in any order, so scores
+    and indices equal the plain version's to the bit, ties included."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 7919 + dim * 31 + k)
+    n = 256 * (150 if dim == 1024 else 600) + off
+    docs = torch.randint(-2, 3, (n, dim), device=cuda, generator=gen).to(dtype)
+    queries = torch.randint(-2, 3, (q, dim), device=cuda, generator=gen).float()
+    before = topk.LAUNCHES
+    got_s, got_i = score_topk(docs, queries, k)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    want_s, want_i = score_topk_reference(docs, queries, k)
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_kernel_masks_rows_past_n_docs(cuda, q, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(q)
+    docs = torch.randint(-2, 3, (256 * 40 + 1, 64), device=cuda, generator=gen).to(dtype)
+    docs[5000:] = 50  # rows past n_docs would win if not masked
+    queries = torch.ones(q, 64, device=cuda)
+    got = score_topk(docs, queries, 64, 5000)
+    want = score_topk_reference(docs, queries, 64, 5000)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) < 5000

@@ -16,16 +16,52 @@
 // through wgmma.
 //
 // Design: two passes, both launched by score_topk_launch.
-//  1. Grid (query block x doc split). A block stages a depth chunk of its
-//     queries and of a tile of TN doc rows in shared memory, each thread
-//     sums an R x 4 patch of scores in registers, then every score that
-//     beats its query's current k-th best (the prune of the TPU kernel's
-//     run_kth) is queued, and one thread per query insertion-sorts the
-//     queue into that query's running top-k in shared memory. Splits are
-//     many enough that Q=1 at N=1M still fills the card; each block writes
-//     its k best of the split to scratch, padded with (-inf, INT_MAX).
+//  1. Grid (query block x doc split). Q <= 4 takes score_topk_splits<T, 1>:
+//     a block stages a depth chunk of its 4 queries and of a tile of TN doc
+//     rows in shared memory, each thread sums a 1 x 4 patch of scores in
+//     registers, then every score that beats its query's current k-th best
+//     (the prune of the TPU kernel's run_kth) is queued, and one thread per
+//     query insertion-sorts the queue into that query's running top-k in
+//     shared memory. Splits are many enough that Q=1 at N=1M still fills
+//     the card; each block writes its k best of the split to scratch,
+//     padded with (-inf, INT_MAX). Q >= 5 takes score_topk_tiles, below.
 //  2. One block per query merges the splits' sorted lists, k rounds of a
 //     block-wide arg-best over the list heads.
+//
+// score_topk_tiles (Q >= 5). At Q=256 the work is 2*Q*N*D FMAs' worth of
+// operations, so the inner loop has to be bound by FFMA issue, not by shared
+// memory or by waiting on loads.
+//  - A block of 128 threads owns 32 queries x BN=256 docs a tile; each
+//    thread keeps an 8 x 8 register tile (64 f32 sums): warp w holds
+//    queries 8w..8w+7, lane l docs 4l..4l+3 and 128+4l..128+4l+3.
+//  - Shared tiles are k-major, q_s[BK][32] and d_s[BK][BS]. For each depth
+//    step a thread reads its 8 queries as two float4 (one address across
+//    the warp: a broadcast) and its 8 docs as two float4: 4 vector loads,
+//    10 wavefronts, for 64 FMAs (16 clocks of an SM's FFMA issue).
+//  - BK=16 keeps the staging registers at 8 x 16 bytes (f32) a thread.
+//    BS=260 floats (260 = 4 mod 32 banks, a multiple of 4 for float4
+//    reads): a warp's transposing stores cover 16 rows x 2 column groups
+//    and fall on 32 banks (bf16 groups of 8 columns write odd groups'
+//    columns in an order rotated by 4 so that they do too); query stores
+//    put lane l on row l, bank l.
+//  - Staging: each doc row's chunk is read with 16-byte loads (4 f32, or
+//    8 bf16 widened in registers at the store), 16 rows x 32 bytes a warp
+//    instruction. Where D or a pointer is not 16-byte aligned the same
+//    registers are filled by scalar loads. The next chunk's loads (across
+//    tiles too) are issued before this chunk's FMAs and stored to the other
+//    of two buffers after them: one __syncthreads a chunk. cp.async and TMA
+//    cannot transpose or widen, so they are not used.
+//  - Selection: after a tile's D loop each thread tests its scores against
+//    its 8 queries' k-th best and queues those that pass, one half tile
+//    (128 docs) at a time, in a queue that reuses the staging buffers; the
+//    insertion and the total order are pass 1's above. Shared memory is
+//    37,376 + 256 k + 256 bytes: 40,192 at k=10, 103,168 at k=256.
+//  - Times at N=1M, D=128, k=10 (chip_smoke.py, NVIDIA H100 80GB HBM3,
+//    700.00 W, the old pass 1 and this one timed in one run): Q=256 f32
+//    5.52 ms with score_topk_splits<float, 8>, 2.57-2.58 ms with this kernel
+//    (bound 0.98 ms by operations); Q=256 bf16 6.95 -> 2.67-2.69; Q=32 f32
+//    1.02 -> 0.48. 155 registers (f32), 149 (bf16), no spills: 3 blocks an
+//    SM at k=10, 2 at k=256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,6 +211,250 @@ score_topk_splits(const T* __restrict__ docs, const T* __restrict__ queries,
     }
 }
 
+constexpr int BQ = 32;                  // score_topk_tiles: queries a block
+constexpr int BN = 256;                 // doc rows a tile
+constexpr int BK = 16;                  // depth of one staged chunk
+constexpr int BS = BN + 4;              // d_s row stride in floats (see the note)
+constexpr int HALF = BN / 2;            // docs queued at once
+constexpr int STAGE = BK * BQ + BK * BS;  // floats of one staging buffer
+static_assert(2 * BQ * HALF <= 2 * STAGE, "the queue must fit in the staging buffers");
+static_assert(BS % 4 == 0 && STAGE % 4 == 0, "float4 reads need 16-byte rows");
+
+// The 16 bytes of row `row` from column `col` of a (rows, dim) matrix, as
+// raw bits: zeros past `rows` or `dim`. `vec`: D and the pointer allow one
+// 16-byte load; else scalar loads fill the same bits.
+template <typename T>
+__device__ __forceinline__ uint4 load_unit(const T* __restrict__ src, long long row,
+                                           long long rows, int col, int dim, bool vec) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (row >= rows || col >= dim) return u;
+    if (vec) return __ldg(reinterpret_cast<const uint4*>(src + row * dim + col));
+    unsigned w[4];
+    if constexpr (sizeof(T) == 4) {
+        const unsigned* p = reinterpret_cast<const unsigned*>(src) + row * dim + col;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = col + j < dim ? __ldg(p + j) : 0u;
+    } else {
+        const unsigned short* p = reinterpret_cast<const unsigned short*>(src) + row * dim + col;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const unsigned lo = col + 2 * j < dim ? __ldg(p + 2 * j) : 0u;
+            const unsigned hi = col + 2 * j + 1 < dim ? __ldg(p + 2 * j + 1) : 0u;
+            w[j] = lo | (hi << 16);
+        }
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The 4 f32 or 8 bf16 values of a unit, widened to f32 (exact).
+template <typename T>
+__device__ __forceinline__ void widen_unit(uint4 u, float (&x)[16 / sizeof(T)]) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        if constexpr (sizeof(T) == 4) {
+            x[j] = __uint_as_float(w[j]);
+        } else {
+            x[2 * j] = __uint_as_float(w[j] << 16);
+            x[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+        }
+    }
+}
+
+// One chunk of a tile in flight: its 16-byte units in registers.
+template <typename T>
+struct Stage {
+    static constexpr int V = 16 / sizeof(T);       // values a unit
+    static constexpr int G = BK / V;               // units a row of the chunk
+    static constexpr int U = BN * G / THREADS1;    // doc units a thread
+    static constexpr int QU = (BQ * G + THREADS1 - 1) / THREADS1;  // query units a thread
+    uint4 d[U];
+    uint4 q[QU];
+
+    // Unit u of a thread: row 16 * (warp + 4 * (u / (G/2))) + lane/2, column
+    // group 2 * (u % (G/2)) + lane%2, so a warp reads 16 rows x 32 bytes.
+    __device__ __forceinline__ static int row(int u, int warp, int lane) {
+        return 16 * (warp + 4 * (u / (G / 2))) + (lane >> 1);
+    }
+    __device__ __forceinline__ static int group(int u, int lane) {
+        return 2 * (u % (G / 2)) + (lane & 1);
+    }
+
+    __device__ __forceinline__ void load(const T* docs, const T* queries, long long t0,
+                                         long long end, int q0, int n_queries, int d0,
+                                         int dim, bool vec, int warp, int lane) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+            d[u] = load_unit(docs, t0 + row(u, warp, lane), end, d0 + group(u, lane) * V,
+                             dim, vec);
+        // query unit i of a thread: row lane, column group warp + 4 i
+#pragma unroll
+        for (int i = 0; i < QU; ++i)
+            if (warp + 4 * i < G)
+                q[i] = load_unit(queries, q0 + lane, n_queries, d0 + (warp + 4 * i) * V, dim, vec);
+    }
+
+    __device__ __forceinline__ void store(float* buf, int warp, int lane) const {
+        float* q_s = buf;
+        float* d_s = buf + BK * BQ;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            float x[V];
+            widen_unit<T>(d[u], x);
+            const int r = row(u, warp, lane), g = group(u, lane);
+            const bool rotate = V == 8 && (g & 1);
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+                const int jj = rotate ? j ^ 4 : j;
+                d_s[(g * V + jj) * BS + r] = rotate ? x[(j ^ 4) % V] : x[j];
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < QU; ++i) {
+            const int g = warp + 4 * i;
+            if (g >= G) continue;
+            float x[V];
+            widen_unit<T>(q[i], x);
+#pragma unroll
+            for (int j = 0; j < V; ++j) q_s[(g * V + j) * BQ + lane] = x[j];
+        }
+    }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS1)
+score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long long n,
+                 int n_queries, int dim, int k, long long n_docs, long long split_len,
+                 int vec, float* __restrict__ cand_v, int* __restrict__ cand_i) {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);      // [2][STAGE] staging
+    float* queue_v = smem;                               // [BQ][HALF], over the staging
+    int* queue_i = reinterpret_cast<int*>(smem + BQ * HALF);  // [BQ][HALF]
+    float* top_v = smem + 2 * STAGE;                     // [BQ][k], sorted
+    int* top_i = reinterpret_cast<int*>(top_v + BQ * k); // [BQ][k]
+    int* queue_n = top_i + BQ * k;                       // [BQ]
+    int* filled = queue_n + BQ;                          // [BQ]
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int q0 = blockIdx.x * BQ;
+    const int split = blockIdx.y;
+    const long long begin = (long long)split * split_len;
+    const long long end = min(begin + split_len, n);
+    const int n_chunks = (dim + BK - 1) / BK;
+
+    if (tid < BQ) {
+        queue_n[tid] = 0;
+        filled[tid] = 0;
+    }
+    Stage<T> st;
+    st.load(docs, queries, begin, end, q0, n_queries, 0, dim, vec, warp, lane);
+    st.store(smem, warp, lane);
+    __syncthreads();
+
+    for (long long t0 = begin; t0 < end; t0 += BN) {
+        float acc[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+        int buf = 0;
+        for (int c = 0; c < n_chunks; ++c) {
+            // the next chunk, of this tile or the next one, into registers
+            const bool more = c + 1 < n_chunks;
+            if (more)
+                st.load(docs, queries, t0, end, q0, n_queries, (c + 1) * BK, dim, vec, warp, lane);
+            else if (t0 + BN < end)
+                st.load(docs, queries, t0 + BN, end, q0, n_queries, 0, dim, vec, warp, lane);
+
+            const float* q_s = smem + buf * STAGE;
+            const float* d_s = q_s + BK * BQ;
+#pragma unroll
+            for (int kk = 0; kk < BK; ++kk) {
+                const float4 a0 = *reinterpret_cast<const float4*>(q_s + kk * BQ + 8 * warp);
+                const float4 a1 = *reinterpret_cast<const float4*>(q_s + kk * BQ + 8 * warp + 4);
+                const float4 b0 = *reinterpret_cast<const float4*>(d_s + kk * BS + 4 * lane);
+                const float4 b1 = *reinterpret_cast<const float4*>(d_s + kk * BS + HALF + 4 * lane);
+                const float qv[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+                const float dv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], dv[j], acc[i][j]);
+            }
+            if (more) st.store(smem + (buf ^ 1) * STAGE, warp, lane);
+            __syncthreads();
+            buf ^= 1;
+        }
+
+        // queue every score that beats its query's current k-th best, one
+        // half tile at a time, then one thread per query inserts its queue
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int ql = 8 * warp + i;
+                if (q0 + ql >= n_queries) continue;
+                const bool full = filled[ql] == k;
+                const float kth_v = full ? top_v[ql * k + k - 1] : 0.f;
+                const int kth_i = full ? top_i[ql * k + k - 1] : 0;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const long long doc = t0 + HALF * h + 4 * lane + j;
+                    if (doc >= end) continue;
+                    const float s = doc < n_docs ? acc[i][4 * h + j] : MASKED;
+                    if (!full || ranks_before(s, (int)doc, kth_v, kth_i)) {
+                        const int p = atomicAdd(&queue_n[ql], 1);
+                        queue_v[ql * HALF + p] = s;
+                        queue_i[ql * HALF + p] = (int)doc;
+                    }
+                }
+            }
+            __syncthreads();
+            if (tid < BQ) {
+                float* tv = top_v + tid * k;
+                int* ti = top_i + tid * k;
+                int f = filled[tid];
+                const int m = queue_n[tid];
+                for (int c = 0; c < m; ++c) {
+                    const float s = queue_v[tid * HALF + c];
+                    const int idx = queue_i[tid * HALF + c];
+                    if (f == k && !ranks_before(s, idx, tv[k - 1], ti[k - 1])) continue;
+                    int p = f < k ? f : k - 1;
+                    while (p > 0 && ranks_before(s, idx, tv[p - 1], ti[p - 1])) {
+                        tv[p] = tv[p - 1];
+                        ti[p] = ti[p - 1];
+                        --p;
+                    }
+                    tv[p] = s;
+                    ti[p] = idx;
+                    if (f < k) ++f;
+                }
+                filled[tid] = f;
+                queue_n[tid] = 0;
+            }
+            __syncthreads();
+        }
+
+        // the next tile's first chunk, loaded before the selection
+        if (t0 + BN < end) {
+            st.store(smem, warp, lane);
+            __syncthreads();
+        }
+    }
+
+    for (int e = tid; e < BQ * k; e += THREADS1) {
+        const int ql = e / k, r = e % k;
+        if (q0 + ql >= n_queries) continue;
+        const long long o = ((long long)(q0 + ql) * gridDim.y + split) * k + r;
+        const bool real = r < filled[ql];
+        cand_v[o] = real ? top_v[e] : -INFINITY;
+        cand_i[o] = real ? top_i[e] : NO_INDEX;
+    }
+}
+
 __global__ void __launch_bounds__(THREADS2)
 score_topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
                  int n_splits, int k, float* __restrict__ out_v, int* __restrict__ out_i) {
@@ -248,6 +528,44 @@ cudaError_t launch(const void* docs, const void* queries, long long n, int n_que
     return cudaGetLastError();
 }
 
+size_t tiles_smem(int k) {
+    return sizeof(float) * (2 * STAGE + BQ * k) + sizeof(int) * (BQ * k + 2 * BQ);
+}
+
+template <typename T>
+cudaError_t tiles_attributes(int k) {
+    return cudaFuncSetAttribute(score_topk_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)tiles_smem(k));
+}
+
+template <typename T>
+cudaError_t launch_tiles(const void* docs, const void* queries, long long n, int n_queries,
+                         int dim, int k, long long n_docs, int n_splits, long long split_len,
+                         float* cand_v, int* cand_i, float* out_v, int* out_i,
+                         cudaStream_t stream) {
+    cudaError_t err = tiles_attributes<T>(k);
+    if (err != cudaSuccess) return err;
+    const int vec = dim % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0
+                    && reinterpret_cast<uintptr_t>(queries) % 16 == 0;
+    const dim3 grid((n_queries + BQ - 1) / BQ, n_splits);
+    score_topk_tiles<T><<<grid, THREADS1, tiles_smem(k), stream>>>(
+        static_cast<const T*>(docs), static_cast<const T*>(queries), n, n_queries, dim, k,
+        n_docs, split_len, vec, cand_v, cand_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    score_topk_merge<<<n_queries, THREADS2, 0, stream>>>(cand_v, cand_i, n_splits, k,
+                                                         out_v, out_i);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t tiles_occupancy(int k, int* blocks_per_sm) {
+    cudaError_t err = tiles_attributes<T>(k);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, score_topk_tiles<T>,
+                                                         THREADS1, tiles_smem(k));
+}
+
 }  // namespace
 
 extern "C" {
@@ -255,7 +573,8 @@ extern "C" {
 // docs (n, dim) and queries (n_queries, dim), both row-major and of one type
 // (float32, or bfloat16 when docs_bf16 != 0); cand_v/cand_i are
 // (n_queries, n_splits, k) scratch; out_v/out_i are (n_queries, k).
-// rows_per_thread picks the query block: 1 (4 queries) or 8 (32 queries).
+// rows_per_thread picks pass 1: 1 (score_topk_splits, 4 queries a block)
+// or 8 (score_topk_tiles, 32 queries a block).
 // Returns the cudaError_t of the launches (0 on success).
 int score_topk_launch(const void* docs, const void* queries, int docs_bf16,
                       long long n, int n_queries, int dim, int k, long long n_docs,
@@ -269,15 +588,24 @@ int score_topk_launch(const void* docs, const void* queries, int docs_bf16,
             return (int)launch<__nv_bfloat16, 1>(docs, queries, n, n_queries, dim, k, n_docs,
                                                  n_splits, split_len, cand_v, cand_i,
                                                  out_v, out_i, s);
-        return (int)launch<__nv_bfloat16, 8>(docs, queries, n, n_queries, dim, k, n_docs,
-                                             n_splits, split_len, cand_v, cand_i,
-                                             out_v, out_i, s);
+        return (int)launch_tiles<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
+                                                n_splits, split_len, cand_v, cand_i,
+                                                out_v, out_i, s);
     }
     if (rows_per_thread == 1)
         return (int)launch<float, 1>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
                                      split_len, cand_v, cand_i, out_v, out_i, s);
-    return (int)launch<float, 8>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
-                                 split_len, cand_v, cand_i, out_v, out_i, s);
+    return (int)launch_tiles<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
+                                    split_len, cand_v, cand_i, out_v, out_i, s);
+}
+
+// The dynamic shared memory of a score_topk_tiles block at this k, and the
+// blocks of it that fit on one SM of the current device. Returns the
+// cudaError_t (0 on success).
+int score_topk_tiles_occupancy(int docs_bf16, int k, int* smem_bytes, int* blocks_per_sm) {
+    *smem_bytes = (int)tiles_smem(k);
+    return docs_bf16 ? (int)tiles_occupancy<__nv_bfloat16>(k, blocks_per_sm)
+                     : (int)tiles_occupancy<float>(k, blocks_per_sm);
 }
 
 }  // extern "C"

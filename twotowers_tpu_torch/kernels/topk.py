@@ -15,7 +15,7 @@ launches on the current stream, allocates outputs and scratch with
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,8 +24,9 @@ from . import build
 MAX_K = 256
 MAX_DIM = 1024
 MAX_SPLITS = 1024   # score_topk.cu:MAX_SPLITS
-TILE_N = 128        # score_topk.cu:TN, doc rows per tile
-BLOCKS_PER_SM = 8   # pass-1 blocks to aim for on each SM
+TILE_N = 128        # score_topk.cu:TN, doc rows per tile of the Q <= 4 pass 1
+BLOCKS_PER_SM = 8   # Q <= 4 pass-1 blocks to aim for on each SM
+BATCH_TILE_N = 256  # score_topk.cu:BN, doc rows per tile of the Q >= 5 pass 1
 
 # kernel launches so far; a run reads it to show it went through the kernel
 LAUNCHES = 0
@@ -33,20 +34,28 @@ LAUNCHES = 0
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def plan(n_queries: int, n: int, sm_count: int) -> Tuple[int, int, int]:
+def plan(n_queries: int, n: int, sm_count: int,
+         blocks_per_sm: int) -> Tuple[int, int, int]:
     """(rows_per_thread, n_splits, split_len) for a call.
 
-    A pass-1 block holds 4 queries when there are at most 4, else 32. The
-    doc axis is cut into enough splits, each a whole number of tiles, that
-    the grid has about ``BLOCKS_PER_SM`` blocks on every SM, so that one
-    query still fills the card.
+    Q <= 4 takes ``score_topk_splits`` (4 queries a block, tiles of
+    ``TILE_N`` docs) and aims at ``BLOCKS_PER_SM`` blocks on every SM, so
+    that one query still fills the card. Q >= 5 takes ``score_topk_tiles``
+    (32 queries a block, tiles of ``BATCH_TILE_N``) and aims at
+    ``blocks_per_sm``, the blocks of it that fit on an SM at once
+    (``tiles_occupancy``): about one wave of splits, each as long as it can
+    be. The doc axis is cut into that many splits, each a whole number of
+    tiles.
     """
-    rows = 1 if n_queries <= 4 else 8
+    if n_queries <= 4:
+        rows, tile, per_sm = 1, TILE_N, BLOCKS_PER_SM
+    else:
+        rows, tile, per_sm = 8, BATCH_TILE_N, max(1, blocks_per_sm)
     q_blocks = -(-n_queries // (4 * rows))
-    tiles = -(-n // TILE_N)
-    want = -(-sm_count * BLOCKS_PER_SM // q_blocks)
+    want = -(-sm_count * per_sm // q_blocks)
+    tiles = -(-n // tile)
     n_splits = max(1, min(want, tiles, MAX_SPLITS))
-    split_len = -(-tiles // n_splits) * TILE_N
+    split_len = -(-tiles // n_splits) * tile
     return rows, -(-n // split_len), split_len
 
 
@@ -79,7 +88,29 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64, i32,
                        ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
+        occ = lib.score_topk_tiles_occupancy
+        occ.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        occ.restype = i32
     return lib
+
+
+_occupancy: Dict[Tuple[int, bool, int], Tuple[int, int]] = {}
+
+
+def tiles_occupancy(device: torch.device, dtype: torch.dtype, k: int) -> Tuple[int, int]:
+    """(shared-memory bytes, blocks per SM) of a Q >= 5 pass-1 block for
+    docs of ``dtype`` at this ``k`` on the card, as the CUDA runtime
+    reports them (registers and shared memory both count)."""
+    key = (torch.device(device).index or 0, dtype == torch.bfloat16, k)
+    if key not in _occupancy:
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            err = _lib().score_topk_tiles_occupancy(int(key[1]), k, ctypes.byref(smem),
+                                                    ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"score_topk occupancy query failed with cudaError_t {err}")
+        _occupancy[key] = (smem.value, blocks.value)
+    return _occupancy[key]
 
 
 def score_topk_cuda(
@@ -101,7 +132,8 @@ def score_topk_cuda(
     queries = queries.to(doc_matrix.dtype).contiguous()
     n_queries = queries.shape[0]
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    rows, n_splits, split_len = plan(n_queries, n, sm_count)
+    per_sm = tiles_occupancy(device, doc_matrix.dtype, k)[1] if n_queries > 4 else 0
+    rows, n_splits, split_len = plan(n_queries, n, sm_count, per_sm)
 
     cand_v = torch.empty((n_queries, n_splits, k), dtype=torch.float32, device=device)
     cand_i = torch.empty((n_queries, n_splits, k), dtype=torch.int32, device=device)
