@@ -21,8 +21,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               checked against the plain version, then one ``top_k=300``
               search (the route for k > 256).
 5. embed   -- the embedding scatter-add and gather kernels, checked and
-              timed as in phase 3, at the train path's shapes and at edge
-              cases.
+              timed as in phase 3, at the train path's shapes, at the
+              experiments' shapes and at edge cases (runs that straddle a
+              chunk, short N, ids outside [0, V), a misaligned g), with the
+              scatter-add's plan, blocks per SM and device time by kernel.
 6. train   -- the word-vocab configuration of ``bench.py``'s
               ``word_vocab_32k_train`` at full width (word vocab 32,768,
               seq 64, batch 16,384, embedding 64, mean tower 128, tied,
@@ -425,6 +427,7 @@ def embed_kernels_phase(card: dict, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     errs = {"scatter_add_rows": 0.0, "gather_rows": 0.0}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def scatter_check(case, g, ids, vocab, out_dtype=torch.float32, exact=False):
         """Kernel against the plain version. Tolerance: both sum f32 in other
@@ -477,6 +480,33 @@ def embed_kernels_phase(card: dict, seed: int) -> dict:
     scatter_check("bf16 table from bf16 g", g_main, main_ids, WORD_VOCAB, torch.bfloat16)
     ints = torch.randint(-3, 4, (MAIN_ROWS, 64), device=dev, generator=gen).float()
     scatter_check("integer-valued g", ints, main_ids, WORD_VOCAB, exact=True)
+    # the redesigned kernel's paths: runs that straddle a chunk, short N,
+    # ids outside [0, V) in runs that cross chunks, scalar loads
+    chunk = scatter_add.CHUNK
+    for length in (chunk - 1, chunk, chunk + 1, 3 * chunk + 5):
+        ids = np.concatenate([np.full(7, 3)] + [np.full(length, i) for i in range(5, 405)])
+        ids = torch.from_numpy(rng.permutation(ids).astype(np.int32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            scatter_check(f"runs of {length} {dtype}", normal(len(ids), 64, dtype), ids, 640)
+    scatter_check("n < chunk", normal(chunk // 2 + 3, 64), uniform_ids(16, chunk // 2 + 3), 16)
+    scatter_check("n = 1", normal(1, 64, torch.bfloat16), uniform_ids(16, 1), 16)
+    scatter_check("n = 1 integer-valued", ints[:1], main_ids[:1], WORD_VOCAB, exact=True)
+    mixed = torch.cat([torch.full((3 * chunk,), -4, dtype=torch.int32, device=dev),
+                       torch.full((2 * chunk + 9,), 640, dtype=torch.int32, device=dev),
+                       torch.full((chunk + 1,), 2**31 - 1, dtype=torch.int32, device=dev),
+                       uniform_ids(640, 50_000), torch.full((3 * chunk,), 9, dtype=torch.int32,
+                                                            device=dev)])
+    mixed = mixed[torch.randperm(len(mixed), device=dev, generator=gen)]
+    for dtype in (torch.float32, torch.bfloat16):
+        scatter_check(f"ids outside [0, V) in crossing runs {dtype}", normal(len(mixed), 64, dtype),
+                      mixed, 640)
+    for dtype in (torch.bfloat16, torch.float32):
+        storage = normal(MAIN_ROWS * WORD_EMB + 1, 1, dtype).reshape(-1)
+        g_off = storage[1:].view(MAIN_ROWS, WORD_EMB)  # a contiguous view, off 16-byte alignment
+        if scatter_add.plan(MAIN_ROWS, WORD_EMB, dtype, g_off.data_ptr(), sm_count).vector:
+            raise AssertionError("a misaligned g must take the scalar loads")
+        scatter_check(f"g {g_off.element_size()} bytes off alignment {dtype}", g_off, main_ids,
+                      WORD_VOCAB)
 
     table = normal(WORD_VOCAB, WORD_EMB)
     for case, tab, ids, out_dtype in [
@@ -534,10 +564,49 @@ def embed_kernels_phase(card: dict, seed: int) -> dict:
     }
     gather_row["bound_ms"], gather_row["bound_by"] = bytes_bound(
         MAIN_ROWS * 4 + WORD_VOCAB * WORD_EMB * 4 + MAIN_ROWS * WORD_EMB * 2)
+    p = scatter_add.plan(MAIN_ROWS, WORD_EMB, g_main.dtype, g_main.data_ptr(), sm_count)
+    scatter_row["plan"] = {"chunk": p.chunk, "team_lanes": p.team_lanes, "warps": p.warps,
+                           "span_warps": p.span_warps, "span_blocks": p.span_blocks,
+                           "smem_bytes": p.smem_bytes}
+    scatter_row["blocks_per_sm"] = dict(zip(("pass1", "pass2"), scatter_add.occupancy(
+        dev, g_main.dtype, torch.float32, p)))
+    scatter_row["device_ms_by_kernel"] = device_ms_by_kernel(
+        lambda: scatter_add.scatter_add_sorted(g_main, sorted_ids, perm, WORD_VOCAB))
     emit("kernels", kernel="scatter_add_rows", case="time main bf16 g", n=MAIN_ROWS,
          d=WORD_EMB, v=WORD_VOCAB, **scatter_row, card=card["nvidia_smi"])
     emit("kernels", kernel="gather_rows", case="time main f32 -> bf16", n=MAIN_ROWS,
          d=WORD_EMB, v=WORD_VOCAB, **gather_row, card=card["nvidia_smi"])
+
+    # times at the experiments' shapes (#4-#6 of PERF.md's table); the
+    # library yardsticks read what the kernels read (f32 g; a bf16 table)
+    g4, g5, ids5 = g_main.float(), normal(3 * MAIN_ROWS, WORD_EMB), exp2_ids.long()
+    sorted5, perm5 = scatter_add.sort_ids(exp2_ids)
+    for case, g, ids, ids64, s_ids, s_perm in [
+            ("#4 exp_pallas_embed N 1,048,576 f32 g", g4, main_ids, ids64, sorted_ids, perm),
+            ("#5 exp_pallas_embed2 N 3,145,728 f32 g", g5, exp2_ids, ids5, sorted5, perm5)]:
+        n = g.shape[0]
+        row = {
+            "ms": cuda_ms(lambda: scatter_add.scatter_add_rows(g, ids, WORD_VOCAB)),
+            "kernel_only_ms": cuda_ms(lambda: scatter_add.scatter_add_sorted(
+                g, s_ids, s_perm, WORD_VOCAB)),
+            "sort_ms": cuda_ms(lambda: scatter_add.sort_ids(ids)),
+            "plain_ms": cuda_ms(lambda: scatter_add.scatter_add_rows_reference(
+                g, ids, WORD_VOCAB)),
+            "library_ms": cuda_ms(lambda: torch.zeros(WORD_VOCAB, WORD_EMB, device=dev)
+                                  .index_add_(0, ids64, g)),
+        }
+        row["bound_ms"], row["bound_by"] = bytes_bound(n * (WORD_EMB * 4 + 4) + table_bytes)
+        emit("kernels", kernel="scatter_add_rows", case=f"time {case}", n=n, d=WORD_EMB,
+             v=WORD_VOCAB, **row, card=card["nvidia_smi"])
+    table6 = table.bfloat16()
+    row = {"ms": cuda_ms(lambda: gather.gather_rows(table6, exp2_ids, torch.bfloat16)),
+           "plain_ms": cuda_ms(lambda: gather.gather_rows_reference(table6, exp2_ids,
+                                                                   torch.bfloat16)),
+           "library_ms": cuda_ms(lambda: F.embedding(ids5, table6))}
+    row["bound_ms"], row["bound_by"] = bytes_bound(3 * MAIN_ROWS * (4 + WORD_EMB * 2)
+                                                   + table_bytes // 2)
+    emit("kernels", kernel="gather_rows", case="time #6 exp_pallas_embed2 N 3,145,728 bf16 -> bf16",
+         n=3 * MAIN_ROWS, d=WORD_EMB, v=WORD_VOCAB, **row, card=card["nvidia_smi"])
     return {"scatter_add_rows": {"max_abs_err": errs["scatter_add_rows"], **scatter_row},
             "gather_rows": {"max_abs_err": errs["gather_rows"], **gather_row}}
 
@@ -630,15 +699,15 @@ def _step_ms(base, pipeline, config, batch, seed, steps=5):
     return start.elapsed_time(end) / steps, state, step
 
 
-def _profile_step(state, step, batch) -> dict:
-    """Device time of 3 train steps by kernel name (torch.profiler): the
-    device's busy time per step and the lookup kernels' part of it."""
+def device_rows(fn, reps: int) -> list:
+    """(kernel name, device ms per call, launches per call) of ``fn`` on the
+    card (torch.profiler), slowest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            step(state, *batch)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     # an op's kernels are listed apart; a device range named after an op
@@ -652,8 +721,21 @@ def _profile_step(state, step, batch) -> dict:
         if self_us is None:
             self_us = getattr(event, "self_cuda_time_total", 0.0)
         if self_us > 0:
-            rows.append((event.key, self_us / 3e3, event.count / 3))
-    rows.sort(key=lambda r: -r[1])
+            rows.append((event.key, self_us / reps / 1e3, event.count / reps))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def device_ms_by_kernel(fn, reps: int = 20) -> dict:
+    """Device ms per call of ``fn`` by kernel name, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    return {name[:60]: ms for name, ms, _ in device_rows(fn, reps)}
+
+
+def _profile_step(state, step, batch) -> dict:
+    """Device time of 3 train steps by kernel name: the device's busy time
+    per step and the lookup kernels' part of it."""
+    rows = device_rows(lambda: step(state, *batch), 3)
     total = sum(ms for _, ms, _ in rows)
     ours = sum(ms for name, ms, _ in rows
                if any(k in name for k in ("scatter_chunks", "scatter_spans",

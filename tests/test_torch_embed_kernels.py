@@ -25,7 +25,7 @@ import torch
 from twotowers_tpu_torch.kernels import gather, scatter_add
 from twotowers_tpu_torch.kernels.gather import gather_rows, gather_rows_reference
 from twotowers_tpu_torch.kernels.scatter_add import (
-    scatter_add_rows, scatter_add_rows_reference, scatter_add_sorted, sort_ids)
+    CHUNK, plan, scatter_add_rows, scatter_add_rows_reference, scatter_add_sorted, sort_ids)
 from twotowers_tpu_torch.models.embeddings import GatherScatterGrad
 
 
@@ -62,6 +62,39 @@ def scatter_case(name, seed=0):
 
 SCATTER_CASES = ["v640-d64", "ragged-n", "d32-v130", "d128", "v612", "v30522", "d130",
                  "geometric", "all-equal", "integer"]
+
+
+def kernel_path_case(name, seed=0):
+    """(g float32, ids int32, vocab, storage offset of g) for the cases that
+    reach the redesigned kernel's paths: runs whose lengths straddle a
+    chunk, N below one chunk, N = 1, ids outside [0, V) inside runs that
+    cross chunks, and a g 2 or 4 bytes off 16-byte alignment (the scalar
+    loads). The rows' order is shuffled, so the sort's perm is not the
+    identity."""
+    rng = np.random.default_rng(seed)
+    vocab, dim, offset = 97, 64, 0
+    run = {"run chunk-1": CHUNK - 1, "run chunk": CHUNK, "run chunk+1": CHUNK + 1,
+           "run 3chunk+5": 3 * CHUNK + 5}
+    if name in run:  # a 7-row run first, so the runs start off the chunk grid too
+        ids = np.concatenate([np.full(7, 3)] + [np.full(run[name], i) for i in range(5, 17)])
+    elif name == "n < chunk":
+        ids = rng.integers(0, 8, size=CHUNK // 2 + 3)
+    elif name == "n = 1":
+        ids = np.array([5])
+    elif name == "out of range in crossing runs":
+        ids = np.concatenate([np.full(3 * CHUNK, -4), np.full(2 * CHUNK + 9, vocab),
+                              np.full(CHUNK + 1, vocab + 7), rng.integers(0, vocab, 900),
+                              np.full(CHUNK * 2, 11)])
+    elif name == "misaligned g":
+        ids, offset = rng.integers(0, vocab, size=3000), 1
+        ids[:700] = 4
+    ids = rng.permutation(ids).astype(np.int32)
+    g = rng.normal(size=(len(ids), dim)).astype(np.float32)
+    return g, ids, vocab, offset
+
+
+KERNEL_PATH_CASES = ["run chunk-1", "run chunk", "run chunk+1", "run 3chunk+5", "n < chunk",
+                     "n = 1", "out of range in crossing runs", "misaligned g"]
 
 
 @pytest.fixture
@@ -107,6 +140,49 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (scatter_add.LAUNCHES, gather.LAUNCHES) == before
 
 
+@pytest.mark.parametrize("dim,dtype,ptr,vector,team_lanes", [
+    (64, torch.bfloat16, 0, True, 8),     # the train path: a 128-byte row, 4 teams a warp
+    (64, torch.float32, 0, True, 16),     # #4/#5's f32 g: 256 bytes, 2 teams a warp
+    (64, torch.bfloat16, 2, False, 8),    # g 2 bytes off alignment: scalar loads
+    (32, torch.float32, 16, True, 8),
+    (130, torch.bfloat16, 0, False, 32),  # 260 bytes: not a multiple of 16
+    (130, torch.float32, 0, False, 32),   # 33 slabs: two column blocks of 32 lanes
+    (1024, torch.bfloat16, 0, True, 32),
+    (1, torch.float32, 0, False, 1),      # 32 one-lane teams a warp
+])
+def test_scatter_add_plan(dim, dtype, ptr, vector, team_lanes):
+    """The launch plan, on the CPU: which loads a shape and pointer take,
+    the team shape, and the scratch the wrapper allocates."""
+    n, sm_count = 1_048_576, 132
+    p = plan(n, dim, dtype, ptr, sm_count)
+    assert (p.vector, p.team_lanes) == (vector, team_lanes)
+    assert p.chunk == CHUNK and p.n_chunks == -(-n // CHUNK)
+    assert p.smem_bytes == p.warps * (2 * 32 // team_lanes * CHUNK + 2) * 4 <= 48 * 1024
+    # a fixed pass-2 grid of 2,048 threads an SM, not one block a chunk
+    assert p.span_blocks == 2048 // (32 * p.span_warps) * sm_count
+
+
+def test_scatter_add_plan_edges():
+    assert plan(1, 64, torch.bfloat16, 0, 132).span_blocks == 0  # one chunk: no pass 2
+    assert plan(CHUNK + 1, 64, torch.bfloat16, 0, 132).span_blocks == 1
+    main = plan(1_048_576, 64, torch.bfloat16, 0, 132)
+    assert (main.n_chunks, main.warps, main.span_warps) == (8192, 8, 16)
+    assert plan(100, 1, torch.float32, 0, 132).warps == 1  # 32 one-lane teams: 32 KB a warp
+
+
+def test_kernel_path_cases_reach_their_paths():
+    """The cases exist as named: misaligned g, runs that straddle a chunk,
+    and out-of-range ids in runs longer than a chunk."""
+    g, ids, vocab, offset = kernel_path_case("misaligned g")
+    assert offset == 1 and not plan(len(ids), 64, torch.bfloat16, 2 * offset, 132).vector
+    _, ids, _, _ = kernel_path_case("run chunk+1")
+    assert np.bincount(ids)[5:17].tolist() == [CHUNK + 1] * 12
+    _, ids, vocab, _ = kernel_path_case("out of range in crossing runs")
+    assert (ids < 0).sum() > CHUNK and (ids >= vocab).sum() > 2 * CHUNK
+    assert len(kernel_path_case("n = 1")[1]) == 1
+    assert len(kernel_path_case("n < chunk")[1]) < CHUNK
+
+
 def test_sort_ids_is_stable():
     ids = torch.tensor([3, 1, 3, 1, 0], dtype=torch.int32)
     sorted_ids, perm = sort_ids(ids)
@@ -134,6 +210,28 @@ def test_scatter_add_kernel_matches_plain_version(cuda, name, g_dtype):
         bound = 1e-5 * scatter_add_rows_reference(g.abs(), ids, vocab) + 1e-6
         assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
     assert torch.equal(scatter_add_rows(g, ids, vocab), got)  # the same bits every run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", KERNEL_PATH_CASES)
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_kernel_paths_match_plain_version(cuda, name, g_dtype):
+    g, ids, vocab, offset = kernel_path_case(name)
+    flat = torch.from_numpy(g).to(cuda, g_dtype).reshape(-1)
+    storage = torch.empty(flat.numel() + offset, dtype=g_dtype, device=cuda)
+    storage[offset:] = flat
+    g = storage[offset:].view(len(ids), -1)  # a contiguous view at this storage offset
+    assert (g.data_ptr() % 16 == 0) == (offset == 0)
+    ids = torch.from_numpy(ids).to(cuda)
+    got = scatter_add_rows(g, ids, vocab)
+    torch.cuda.synchronize()
+    want = scatter_add_rows_reference(g, ids, vocab)
+    bound = 1e-5 * scatter_add_rows_reference(g.abs(), ids, vocab) + 1e-6
+    assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
+    assert torch.equal(scatter_add_rows(g, ids, vocab), got)  # the same bits every run
+    ints = torch.round(g.float() * 2).to(g_dtype)  # integer-valued: exact in any order
+    assert torch.equal(scatter_add_rows(ints, ids, vocab),
+                       scatter_add_rows_reference(ints, ids, vocab))
 
 
 @pytest.mark.cuda

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_embed_kernels import SCATTER_CASES, scatter_case
+from test_torch_embed_kernels import SCATTER_CASES, kernel_path_case, scatter_case
 from twotowers_tpu.kernels.pallas_scatter_add import _take_scatter_grad, scatter_add_rows
 from twotowers_tpu_torch.kernels.scatter_add import scatter_add_rows_reference
 from twotowers_tpu_torch.models.embeddings import Embedding, EmbeddingSpec, GatherScatterGrad
@@ -40,6 +40,19 @@ def test_plain_scatter_add_matches_pallas_interpret(name):
         np.testing.assert_array_equal(got.numpy(), want)
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=rtol)
+
+
+@pytest.mark.parametrize("name", ["out of range in crossing runs", "run chunk+1", "n = 1"])
+def test_plain_scatter_add_drops_out_of_range_ids_as_jax_does(name):
+    """Ids outside [0, V) add nothing: ``zeros.at[ids].add(g, mode="drop")``
+    without wrapping negative ids, as the Pallas kernel's range predicate
+    drops them when the table spans several blocks (one block leaves them
+    undefined); on the cases that reach the CUDA kernel's new paths."""
+    g, ids, vocab, _ = kernel_path_case(name)
+    got = scatter_add_rows_reference(torch.from_numpy(g), torch.from_numpy(ids), vocab)
+    want = jnp.zeros((vocab, g.shape[1]), jnp.float32).at[jnp.asarray(ids)].add(
+        jnp.asarray(g), mode="drop", wrap_negative_indices=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_plain_scatter_add_widens_bf16_cotangents():

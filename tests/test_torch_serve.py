@@ -26,6 +26,7 @@ from twotowers_tpu.train.optim import build_optimizer
 from twotowers_tpu_torch.convert import params_from_jax
 from twotowers_tpu_torch.index.two_tower import TwoTowerSearch
 from twotowers_tpu_torch.models import spec_from_config
+from twotowers_tpu_torch.serve import service as service_module
 from twotowers_tpu_torch.serve import store as store_module
 from twotowers_tpu_torch.serve.app import ModelRuntime, _load_runtime, create_app
 from twotowers_tpu_torch.serve.service import RetrievalService, ServiceError
@@ -149,6 +150,28 @@ def test_service_errors_match_jax(services, call, status):
         assert exc.value.status == status
 
 
+def test_negative_top_k_raises_as_jax_does(both, services):
+    """A negative k is refused by score_topk in both packages, through
+    search_batch (which clamps k only from above) and through the service's
+    search, whose error is not a ServiceError and so propagates; k = 0
+    gives empty results in both."""
+    jax_search, search = _searches(both)
+    jax_search.index_documents(TEXTS)
+    search.index_documents(TEXTS)
+    for s in (search, jax_search):
+        with pytest.raises(ValueError, match="nonnegative"):
+            s.search_batch(QUERIES, top_k=-1)
+    assert search.search_batch(QUERIES[:2], top_k=0) == jax_search.search_batch(QUERIES[:2],
+                                                                               top_k=0)
+    jax_service, service, _, _ = services
+    ids = [f"d{i}" for i in range(len(TEXTS))]
+    for svc in (service, jax_service):
+        svc.add(TEXTS, ids=ids)
+        with pytest.raises(ValueError, match="nonnegative"):
+            svc.search(QUERIES[0], top_k=-1)
+    assert service.search(QUERIES[0], top_k=0) == jax_service.search(QUERIES[0], top_k=0)
+
+
 def test_degraded_mode_matches_jax():
     jax_svc, svc = JaxService(model=None), RetrievalService(model=None, device="cpu")
     assert svc.health() == jax_svc.health()
@@ -216,3 +239,54 @@ def test_query_under_sustained_writes_pairs_texts_with_their_scores(monkeypatch)
         assert doc == coll._documents[coll._id_to_pos[rid]]
         assert dist == pytest.approx(1.0 - float(stored[rid] @ e0), abs=1e-6)
     assert result["documents"][0] == ["b", f"a{MAX_RETRIES}"]
+
+
+def _records(coll):
+    return {rid: (coll._documents[pos], coll._metadatas[pos], coll._embeddings[pos].tolist())
+            for rid, pos in coll._id_to_pos.items()}
+
+
+@pytest.mark.parametrize("first", [[], ["x"]])
+def test_repeated_id_within_one_add_keeps_its_last_record(first):
+    """Deviation from the JAX store, which splits the record (first add:
+    the first embedding beside the last text) or raises IndexError after a
+    partial write (a later add). Here the last occurrence wins, on an empty
+    store and on a non-empty one."""
+    coll = VectorCollection("c", device="cpu")
+    e = np.eye(4, dtype=np.float32)
+    if first:
+        coll.add(first, e[3:], ["X"])
+    coll.add(["a", "b", "a"], e[:3], ["A1", "B", "A2"], [{"n": 1}, {"n": 2}, {"n": 3}])
+    assert coll.count() == len(first) + 2 == len(coll._embeddings)
+    assert _records(coll)["a"] == ("A2", {"n": 3}, e[2].tolist())
+    assert _records(coll)["b"] == ("B", {"n": 2}, e[1].tolist())
+    result = coll.query(e[2][None], n_results=1)
+    assert (result["ids"], result["documents"]) == ([["a"]], [["A2"]])
+    assert result["distances"][0][0] == pytest.approx(0.0, abs=1e-6)
+
+
+def test_short_metadatas_leave_the_store_as_it_was():
+    coll = VectorCollection("c", device="cpu")
+    e = np.eye(3, dtype=np.float32)
+    coll.add(["x"], e[:1], ["X"], [{"k": 0}])
+    before = (_records(coll), coll._version)
+    with pytest.raises(ValueError, match="metadatas"):
+        coll.add(["x", "y"], e[1:], ["X2", "Y"], [{"k": 1}])
+    assert (_records(coll), coll._version) == before
+    with pytest.raises(ValueError, match="align"):
+        coll.add(["y", "z"], e[1:2], ["Y", "Z"])
+    assert (_records(coll), coll._version) == before
+
+
+def test_id_less_adds_in_one_millisecond_keep_both(services, monkeypatch):
+    """Deviation from the JAX service, whose doc_{ms}_{i} ids collide for
+    two id-less adds in one millisecond: the second overwrites the first.
+    Here the ids carry a per-process call number too."""
+    service = services[1]
+    fresh = RetrievalService(model=service.model, device="cpu")
+    monkeypatch.setattr(service_module.time, "time", lambda: 1_700_000_000.0)
+    fresh.add(TEXTS[:3])
+    fresh.add(TEXTS[3:5])
+    assert fresh.collection.count() == 5
+    assert len(set(fresh.collection._ids)) == 5
+    assert all(rid.startswith("doc_1700000000000_") for rid in fresh.collection._ids)

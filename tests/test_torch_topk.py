@@ -16,6 +16,7 @@ import torch
 
 from test_torch_topk_kernel import CASES, case
 from twotowers_tpu.kernels.pallas_topk import score_topk_pallas
+from twotowers_tpu.ops.topk_score import score_topk as jax_score_topk
 from twotowers_tpu.ops.topk_score import score_topk_xla
 from twotowers_tpu_torch.ops import topk_score
 from twotowers_tpu_torch.ops.topk_score import score_topk, score_topk_reference
@@ -71,6 +72,29 @@ def test_route_rule_on_the_card(monkeypatch, n, dim, k, route):
     score_topk(torch.empty(n, dim, device="meta"), torch.empty(2, dim, device="meta"), k)
     assert taken == [route]
     assert topk_score.TORCH_ROUTE_CALLS == before + (route == "torch")
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_negative_k_raises_as_jax_does(np_rng, monkeypatch, device):
+    """k < 0 raises ValueError before any route is chosen, as
+    ``lax.top_k`` does; k = 0 gives empty (Q, 0) results in both packages.
+    Tensors on the meta device stand in for the card's."""
+    docs = np_rng.normal(size=(10, 8)).astype(np.float32)
+    queries = np_rng.normal(size=(2, 8)).astype(np.float32)
+    with pytest.raises(ValueError, match="nonnegative"):
+        jax_score_topk(jnp.asarray(docs), jnp.asarray(queries), -1, use_pallas=False)
+    taken = []
+    monkeypatch.setattr(topk_score, "score_topk_cuda", lambda *a: taken.append("kernel"))
+    monkeypatch.setattr(topk_score, "score_topk_torch", lambda *a: taken.append("torch"))
+    d, q = torch.from_numpy(docs).to(device), torch.from_numpy(queries).to(device)
+    for k in (-1, -3):
+        with pytest.raises(ValueError, match="nonnegative"):
+            score_topk(d, q, k)
+    assert taken == []
+    got_s, got_i = score_topk(torch.from_numpy(docs), torch.from_numpy(queries), 0)
+    want_s, want_i = jax_score_topk(jnp.asarray(docs), jnp.asarray(queries), 0, use_pallas=False)
+    assert got_s.shape == got_i.shape == np.asarray(want_s).shape == np.asarray(want_i).shape \
+        == (2, 0)
 
 
 def test_torch_route_matches_jax_for_large_k(np_rng):

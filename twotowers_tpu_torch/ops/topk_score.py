@@ -78,7 +78,10 @@ def score_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k dot-product scores per query: the plain version for CPU
     tensors; on the card the CUDA kernel where ``kernel_takes`` the shape,
-    else ``score_topk_torch``."""
+    else ``score_topk_torch``. ``k < 0`` raises ValueError on every route,
+    as ``lax.top_k`` does; ``k = 0`` gives empty (Q, 0) results."""
+    if k < 0:
+        raise ValueError(f"k argument to top_k must be nonnegative, got {k}")
     if doc_matrix.device.type == "cpu" and queries.device.type == "cpu":
         return score_topk_reference(doc_matrix, queries, k, n_docs)
     if kernel_takes(doc_matrix, k):

@@ -2,18 +2,23 @@
 
 A copy of ``twotowers_tpu/serve/service.py``: /embed, /search, /add and
 /health as a transport-independent class, with the same status codes,
-response shapes, id generation and degraded mode. ``serve/app.py``'s
-FastAPI layer is a thin adapter over it.
+response shapes and degraded mode. ``serve/app.py``'s FastAPI layer is a
+thin adapter over it. Deviation, on purpose: a generated id carries a
+per-process call number besides the millisecond, so two id-less adds in one
+millisecond do not overwrite each other.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 from .store import VectorCollection
+
+_ADD_CALLS = itertools.count()  # numbers the id-less adds of this process
 
 
 class ServiceError(Exception):
@@ -60,9 +65,9 @@ class RetrievalService:
             raise ServiceError(422, "documents must be non-empty")
         if ids is not None and len(ids) != len(documents):
             raise ServiceError(422, "ids and documents length mismatch")
-        ids = ids or [
-            f"doc_{int(time.time() * 1000)}_{i}" for i in range(len(documents))
-        ]
+        if not ids:
+            stamp = f"doc_{int(time.time() * 1000)}_{next(_ADD_CALLS)}"
+            ids = [f"{stamp}_{i}" for i in range(len(documents))]
         vectors = model.encode(documents, "document")
         added = self.collection.add(ids, vectors, documents, metadatas)
         return {"added": added, "total": self.collection.count()}

@@ -57,29 +57,38 @@ class VectorCollection:
         documents: Sequence[str],
         metadatas: Optional[Sequence[Dict]] = None,
     ) -> int:
-        """Insert or overwrite records by id; returns number added."""
+        """Insert or overwrite records by id; returns number added.
+
+        Deviation from the JAX store, on purpose: every length is checked
+        before anything changes, and an id repeated within the call keeps
+        its last record (last write wins), so a refused call leaves the
+        store as it was and a repeated id cannot split a record."""
         embeddings = np.asarray(embeddings, dtype=np.float32)
         if embeddings.ndim != 2 or len(ids) != len(embeddings) or len(ids) != len(documents):
             raise ValueError("ids/embeddings/documents must align; embeddings 2-D")
-        if self.dim is None:
-            self.dim = int(embeddings.shape[1])
-        if embeddings.shape[1] != self.dim:
-            raise ValueError(f"dim mismatch: {embeddings.shape[1]} != {self.dim}")
-        metadatas = list(metadatas) if metadatas else [{} for _ in ids]
+        if metadatas and len(metadatas) != len(ids):
+            raise ValueError(f"metadatas must align with ids: {len(metadatas)} != {len(ids)}")
+        dim = self.dim if self.dim is not None else int(embeddings.shape[1])
+        if embeddings.shape[1] != dim:
+            raise ValueError(f"dim mismatch: {embeddings.shape[1]} != {dim}")
+        last = {}  # id -> its last position in this call, in first-seen order
+        for i, record_id in enumerate(ids):
+            last[record_id] = i
         with self._lock:
+            self.dim = dim
             new_rows = []
-            for i, record_id in enumerate(ids):
+            for record_id, i in last.items():
+                metadata = metadatas[i] if metadatas else {}
                 if record_id in self._id_to_pos:
                     pos = self._id_to_pos[record_id]
                     self._documents[pos] = documents[i]
-                    self._metadatas[pos] = metadatas[i]
-                    if self._embeddings is not None:
-                        self._embeddings[pos] = embeddings[i]
+                    self._metadatas[pos] = metadata
+                    self._embeddings[pos] = embeddings[i]
                 else:
                     self._id_to_pos[record_id] = len(self._ids)
                     self._ids.append(record_id)
                     self._documents.append(documents[i])
-                    self._metadatas.append(metadatas[i])
+                    self._metadatas.append(metadata)
                     new_rows.append(i)
             if new_rows:
                 block = embeddings[new_rows]
