@@ -8,11 +8,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. device  -- the card's name and power limit; no card is a failure.
 2. build   -- every CUDA source of the port (one nvcc each, started
               together) and the native tokenizer, from this checkout.
-3. kernels -- the score + top-k kernel's Q >= 5 block (shared-memory
-              bytes and blocks per SM at k=10 and k=256), then the kernel
-              against its plain PyTorch version on the card at the serve
-              path's shapes and at edge cases, then timed beside the plain
-              version, a library yardstick and its bound.
+3. kernels -- the score + top-k kernel's Q <= 4 block (registers, local
+              bytes, shared-memory bytes and blocks per SM) and Q >= 5
+              block (shared-memory bytes and blocks per SM at k=10 and
+              k=256), then the kernel against its plain PyTorch version on
+              the card at the serve path's shapes and at edge cases (Q=1
+              twins of the batch's), then timed beside the plain version, a
+              library yardstick and its bound, with pass 1 and pass 2
+              apart at Q=1.
 4. serve   -- the default config (char tokenizer, max_len 64, lookup
               embedding 64, mean tower 128, f32) at full width with random
               weights from the seed, over ``--n-docs`` synthetic texts:
@@ -177,7 +180,8 @@ def topk_bound(n, dim, q, k, dtype):
 
 
 def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
-    from twotowers_tpu_torch.kernels.topk import score_topk_cuda, tiles_occupancy
+    from twotowers_tpu_torch.kernels.topk import (
+        score_topk_cuda, stream_occupancy, tiles_occupancy)
     from twotowers_tpu_torch.ops.topk_score import score_topk_reference
 
     dev = torch.device("cuda")
@@ -188,6 +192,16 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
         emit("kernels", case="Q >= 5 pass-1 block", dtype=str(dtype), **occupancy)
         if occupancy["k10"]["blocks_per_sm"] < 2:
             raise AssertionError(f"Q >= 5 pass 1: fewer than 2 blocks per SM at k=10: {occupancy}")
+        # the Q <= 4 pass keeps 8 rows x 16 bytes in flight a lane, 32 KB a
+        # block, where the card needs ~18 KB an SM; its launch bound asks for
+        # 3 blocks an SM at Q=1. It needs those, a block at Q=4, no spills
+        for q, k in ((1, 10), (4, 10), (1, 256), (4, 256)):
+            block = stream_occupancy(dev, dtype, q, 128, k)
+            emit("kernels", case="Q <= 4 pass-1 block", dtype=str(dtype), q=q, d=128, k=k,
+                 in_flight_bytes_per_sm=block["blocks_per_sm"] * 8 * 32 * 8 * 16, **block)
+            if block["local_bytes"] or block["blocks_per_sm"] < (3 if (q, k) == (1, 10) else 1):
+                raise AssertionError(f"Q <= 4 pass 1 at Q={q}, k={k}: spills or too few "
+                                     f"blocks per SM: {block}")
 
     def unit(*shape):
         x = torch.randn(*shape, device=dev, generator=gen)
@@ -236,23 +250,44 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     ints = torch.randint(-2, 3, (n_docs // 4, 64), device=dev, generator=gen).float()
     qints = torch.randint(-2, 3, (64, 64), device=dev, generator=gen).float()
     check("integer-valued", ints, qints, 32, exact=True)
+    # the Q <= 4 pass: twins of the cases above at Q=1 (and Q=4)
+    check("ragged n q1", docs[:ragged], queries[1], 10)
+    check("ragged n q4 bf16", docs_bf16[:ragged], unit(4, 128), 10)
+    check("n_docs < N q1", padded, queries[1], 10, n_real=5000)
+    check("n_docs < N q3 bf16", padded.bfloat16(), unit(3, 128), 10, n_real=5000)
+    docs100, q100 = unit(n_docs, 100), unit(1, 100)
+    check("q1 d100 f32", docs100, q100, 10)
+    check("q1 d100 bf16 (scalar fill)", docs100.bfloat16(), q100, 10)
+    del docs100
+    check("all scores tied q1", tied, ones[:1], 256)
+    check("k=256 q1", docs, queries[1], 256)
+    check("k=256 q4 bf16", docs_bf16, unit(4, 128), 256)
+    check("integer-valued q1", ints, qints[:1], 32, exact=True)
+    check("integer-valued q4 bf16", ints.bfloat16(), qints[:4], 256, exact=True)
 
     timings = {}
-    for (q, dtype) in [(1, torch.float32), (32, torch.float32), (256, torch.float32),
-                       (1, torch.bfloat16), (32, torch.bfloat16), (256, torch.bfloat16)]:
+    queries[4] = unit(4, 128)
+    for (q, dtype, k) in [(1, torch.float32, 10), (4, torch.float32, 10),
+                          (32, torch.float32, 10), (256, torch.float32, 10),
+                          (1, torch.bfloat16, 10), (4, torch.bfloat16, 10),
+                          (32, torch.bfloat16, 10), (256, torch.bfloat16, 10),
+                          (1, torch.float32, 256), (1, torch.bfloat16, 256)]:
         d = docs if dtype == torch.float32 else docs_bf16
         qs = queries[q]
-        bound, bound_by = topk_bound(n_docs, 128, q, 10, dtype)
+        bound, bound_by = topk_bound(n_docs, 128, q, k, dtype)
         row = {
-            "ms": cuda_ms(lambda: score_topk_cuda(d, qs, 10)),
-            "plain_ms": cuda_ms(lambda: score_topk_reference(d, qs, 10)),
-            "library_ms": cuda_ms(lambda: torch.topk(qs.to(dtype) @ d.T, 10)),
+            "ms": cuda_ms(lambda: score_topk_cuda(d, qs, k)),
+            "plain_ms": cuda_ms(lambda: score_topk_reference(d, qs, k)),
+            "library_ms": cuda_ms(lambda: torch.topk(qs.to(dtype) @ d.T, k)),
             "bound_ms": bound, "bound_by": bound_by,
         }
-        timings[(q, dtype)] = row
-        emit("kernels", case=f"time q{q} {dtype}", n=n_docs, d=128, k=10, **row,
+        if q == 1:  # the single search: pass 1 and pass 2 apart
+            row["device_ms_by_kernel"] = device_ms_by_kernel(lambda: score_topk_cuda(d, qs, k))
+        timings[(q, dtype, k)] = row
+        emit("kernels", case=f"time q{q} {dtype} k{k}", n=n_docs, d=128, k=k, **row,
              card=card["nvidia_smi"])
-    return {"max_abs_err": max(errs), **timings[(256, torch.float32)]}
+    return {"max_abs_err": max(errs), **timings[(256, torch.float32, 10)],
+            "q1_f32": timings[(1, torch.float32, 10)]}
 
 
 # ---- 4. serve -----------------------------------------------------------------
@@ -885,6 +920,9 @@ def main() -> int:
         "bound_ms": topk_row["bound_ms"], "bound_by": topk_row["bound_by"],
         "library_ms": topk_row["library_ms"],
         "shape": {"n": args.n_docs, "d": 128, "q": 256, "k": 10, "dtype": "float32"},
+        "single_search": {**{key: topk_row["q1_f32"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": {"n": args.n_docs, "d": 128, "q": 1, "k": 10, "dtype": "float32"}},
         "card": card["nvidia_smi"],
     }, {
         "name": "scatter_add_rows", "route": "cuda",

@@ -80,7 +80,7 @@ PLAN_CASES += [(q, n) for q in (5, 31, 33, 64, 255, 257, 5000)
 @pytest.mark.parametrize("q,n", PLAN_CASES)
 def test_plan_fills_the_card_and_covers_the_docs(q, n):
     rows, n_splits, split_len = topk.plan(q, n, sm_count=132, blocks_per_sm=2)
-    tile = topk.TILE_N if q <= 4 else topk.BATCH_TILE_N
+    tile = topk.STREAM_ROWS if q <= 4 else topk.BATCH_TILE_N
     q_blocks = -(-q // (4 * rows))
     assert rows == (1 if q <= 4 else 8)
     assert split_len % tile == 0
@@ -104,9 +104,33 @@ def test_plan_gives_a_batch_one_wave_of_splits(q, blocks_per_sm, splits):
 
 @pytest.mark.parametrize("q", [1, 2, 3, 4])
 def test_plan_of_up_to_four_queries_ignores_the_batch_occupancy(q):
-    want = topk.plan(q, 1_000_000, 132, 2)
-    assert want[0] == 1 and want[2] % topk.TILE_N == 0
-    assert all(topk.plan(q, 1_000_000, 132, b) == want for b in (0, 1, 5))
+    """Q <= 4 takes the streaming pass (rows_per_thread 1, all the queries in
+    one block), never the batch pass's tiles of 256: its plan follows only
+    the blocks per SM it is given, the same for every Q up to 4."""
+    for blocks in (1, 2, 5):
+        want = topk.plan(1, 1_000_000, 132, blocks)
+        assert topk.plan(q, 1_000_000, 132, blocks) == want
+        assert want[0] == 1 and want[2] % topk.STREAM_ROWS == 0
+
+
+STREAM_PLAN_CASES = [(q, n, blocks) for q in (1, 2, 3, 4)
+                     for n in (1, 127, 1_000_000, 999_983) for blocks in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("q,n,blocks", STREAM_PLAN_CASES)
+def test_plan_of_a_single_search_makes_one_wave_of_splits(q, n, blocks):
+    """The splits cover the docs, stay within pass 2's ``MAX_SPLITS`` and
+    make about one wave: no more blocks than fit on 132 SMs at once, and at
+    1M docs within 3% of them, so pass 2 merges a few hundred lists."""
+    rows, n_splits, split_len = topk.plan(q, n, 132, blocks)
+    tiles = -(-n // topk.STREAM_ROWS)
+    wave = min(132 * blocks, tiles)
+    assert rows == 1 and split_len % topk.STREAM_ROWS == 0
+    assert (n_splits - 1) * split_len < n <= n_splits * split_len
+    assert 1 <= n_splits <= topk.MAX_SPLITS
+    assert n_splits <= wave and 2 * n_splits > wave
+    if n >= 1_000_000:
+        assert n_splits >= 0.97 * wave
 
 
 @pytest.fixture
@@ -169,3 +193,95 @@ def test_batch_kernel_masks_rows_past_n_docs(cuda, q, dtype):
     want = score_topk_reference(docs, queries, 64, 5000)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1].max()) < 5000
+
+
+def _split_len(cuda, q, n, dtype, dim, k):
+    """The split length of the Q <= 4 pass for this call on the card."""
+    per_sm = topk.stream_occupancy(cuda, dtype, q, dim, k)["blocks_per_sm"]
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return topk.plan(q, n, sm_count, per_sm)[2]
+
+
+def _bit_equal(docs, queries, k, n_docs=None):
+    before = topk.LAUNCHES
+    got_s, got_i = score_topk(docs, queries, k, n_docs)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    want_s, want_i = score_topk_reference(docs, queries, k, n_docs)
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_i, want_i)
+    return got_s, got_i
+
+
+STREAM_EDGE_CASES = [(q, dim, dtype, k, off) for q in (1, 4) for dim in (1, 100, 128, 1024)
+                     for dtype in (torch.float32, torch.bfloat16) for k in (1, 64, 256)
+                     for off in (-1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,dim,dtype,k,off", STREAM_EDGE_CASES)
+def test_stream_kernel_crosses_split_edges(cuda, q, dim, dtype, k, off):
+    """The Q <= 4 pass at N = split_len m +- 1 (a last split one row long or
+    one row short), D=1 and 100 on the scalar fill in bf16 (D=1 in f32
+    too), D=1024 in several 128-column passes, k up to 256. Integer-valued
+    inputs sum exactly in any order, so scores and indices equal the plain
+    version's to the bit, ties included."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 7919 + dim * 31 + k)
+    base = topk.STREAM_ROWS * (150 if dim == 1024 else 600)
+    split_len = _split_len(cuda, q, base, dtype, dim, k)
+    n = split_len * -(-base // split_len) + off
+    docs = torch.randint(-2, 3, (n, dim), device=cuda, generator=gen).to(dtype)
+    queries = torch.randint(-2, 3, (q, dim), device=cuda, generator=gen).float()
+    _bit_equal(docs, queries, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 63, 64, 65, 127, 129])
+@pytest.mark.parametrize("q", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernel_takes_fewer_docs_than_one_iteration(cuda, n, q, dtype):
+    """N below one block iteration's rows (64 f32, 128 bf16), and just past."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    docs = torch.randint(-2, 3, (n, 128), device=cuda, generator=gen).to(dtype)
+    queries = torch.randint(-2, 3, (q, 128), device=cuda, generator=gen).float()
+    _bit_equal(docs, queries, min(5, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernel_masks_rows_past_n_docs(cuda, q, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(q)
+    docs = torch.randint(-2, 3, (256 * 40 + 1, 64), device=cuda, generator=gen).to(dtype)
+    docs[5000:] = 50  # rows past n_docs would win if not masked
+    got = _bit_equal(docs, torch.ones(q, 64, device=cuda), 64, 5000)
+    assert int(got[1].max()) < 5000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", ["row", "element"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernel_reads_docs_off_alignment(cuda, offset, dtype):
+    """A docs view one row (D=100: 400 or 200 bytes) or one element past the
+    start of its storage. bf16 at D=100 and any view one element off take
+    the scalar fill; f32 one row off stays 16-byte aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    n, dim = 50_001, 100
+    skip = dim if offset == "row" else 1
+    storage = torch.randint(-2, 3, ((n + 1) * dim,), device=cuda, generator=gen).to(dtype)
+    docs = storage[skip:skip + n * dim].view(n, dim)
+    queries = torch.randint(-2, 3, (2, dim), device=cuda, generator=gen).float()
+    _bit_equal(docs, queries, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,k", [(1, 256), (4, 256), (2, 10)])
+def test_stream_kernel_breaks_ties_to_the_lower_index(cuda, q, k):
+    """Every score ties (or every query is zero): the first k docs, in order."""
+    docs = torch.zeros(8192, 16, device=cuda)
+    docs[:, 0] = 1.0
+    queries = torch.zeros(q, 16, device=cuda)
+    if k == 256:
+        queries[:, 0] = 1.0
+    _, got_i = _bit_equal(docs, queries, k)
+    assert torch.equal(got_i.cpu(), torch.arange(k, dtype=torch.int32).repeat(q, 1))

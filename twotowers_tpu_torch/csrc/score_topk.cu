@@ -4,33 +4,63 @@
 // score_topk_pallas). For each query it keeps the top-k of q . doc^T
 // without writing the (Q, N) score matrix. Rows at or past n_docs score
 // -1e30 (score_topk_xla's mask), results come best first, and equal scores
-// go to the lower doc index (lax.top_k's order).
-//
-// What bounds it on an H100 SXM (67 TFLOP/s f32 outside the tensor cores,
-// 3.35 TB/s): at Q=256, N=1M, D=128 in f32 it is compute,
-// 2*256*1e6*128 = 6.55e10 FLOP / 67 TFLOP/s = 0.98 ms against
-// 512 MB / 3.35 TB/s = 0.15 ms of doc reads. At Q=1, and for bf16 docs once
-// they run on the tensor cores, it is bytes. This version sums f32 FMAs on
-// the CUDA cores in a fixed order over D (bf16 docs are widened on load; no
-// TF32, which would break exact indices). A later change can run bf16 docs
-// through wgmma.
+// go to the lower doc index (lax.top_k's order). Products are summed in f32
+// (bf16 docs widened exactly; no TF32, which would break exact indices).
 //
 // Design: two passes, both launched by score_topk_launch.
-//  1. Grid (query block x doc split). Q <= 4 takes score_topk_splits<T, 1>:
-//     a block stages a depth chunk of its 4 queries and of a tile of TN doc
-//     rows in shared memory, each thread sums a 1 x 4 patch of scores in
-//     registers, then every score that beats its query's current k-th best
-//     (the prune of the TPU kernel's run_kth) is queued, and one thread per
-//     query insertion-sorts the queue into that query's running top-k in
-//     shared memory. Splits are many enough that Q=1 at N=1M still fills
-//     the card; each block writes its k best of the split to scratch,
-//     padded with (-inf, INT_MAX). Q >= 5 takes score_topk_tiles, below.
-//  2. One block per query merges the splits' sorted lists, k rounds of a
-//     block-wide arg-best over the list heads.
+//  1. Grid (query block x doc split): each block keeps the top-k of its
+//     split and writes it to (Q, n_splits, k) scratch, padded with
+//     (-inf, INT_MAX). Q <= 4 takes score_topk_stream, Q >= 5
+//     score_topk_tiles; both are below.
+//  2. score_topk_merge: one block per query merges the splits' sorted
+//     lists, k rounds of a block-wide arg-best over the list heads.
 //
-// score_topk_tiles (Q >= 5). At Q=256 the work is 2*Q*N*D FMAs' worth of
-// operations, so the inner loop has to be bound by FFMA issue, not by shared
-// memory or by waiting on loads.
+// score_topk_stream (1 <= Q <= 4, every single search). What bounds it on
+// an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores) is bytes:
+// at N=1M, D=128 the docs are 512 MB in f32, 0.153 ms, and 256 MB in bf16,
+// 0.076 ms, against 2*Q*N*D <= 1.0e9 operations, 0.015 ms. So the pass
+// streams each doc row through registers once and keeps the loads in flight.
+//  - A team of lanes reads a row, 16 bytes a lane (ld.global.nc.v4 through
+//    load_unit; scalar loads fill the same registers where D or the pointer
+//    is off 16-byte alignment): 32 lanes for the 512 bytes of an f32 row at
+//    D=128, 16 lanes for a bf16 row, so a warp reads two bf16 rows at once.
+//    Wider rows take one pass of 128 columns after another. Nothing is
+//    staged in shared memory but the block's queries (widened, zero-padded
+//    to a multiple of 128 columns), since a dot product needs no transpose.
+//  - Each lane issues the loads of ROWS rows (8 x 16 bytes) before it sums
+//    any of them: 4 KB in flight a warp, 32 KB a block of 8 warps; the
+//    card needs about 2.3 MB in flight (0.7 us x 3.35 TB/s), 18 KB an SM.
+//  - A lane holds partial sums of Q queries x ROWS rows. A butterfly that
+//    halves the rows at each step (a reduce-scatter: 4, 2, then 1 shuffle
+//    a query) leaves each lane one row, then plain xor steps finish it:
+//    9 shuffles a query for 8 f32 rows, 8 for 16 bf16 rows. The summation
+//    order is fixed by the shapes alone.
+//  - Selection is the TPU kernel's prune (run_kth). Each warp keeps its own
+//    sorted top-k in shared memory, so the pass needs no __syncthreads
+//    until the split ends. A warp ballots the rows that beat its k-th best;
+//    the whole warp inserts each one (a ballot count finds its place, lanes
+//    shift the tail), re-ballots against the new k-th best, and goes on.
+//    Rows within a warp come in ascending order, so when every score ties
+//    only the warp's first k rows pass. At the end warps 0..Q-1 merge the
+//    8 warp lists of their query into the block's k best (k rounds of an
+//    arg-best over 8 heads).
+//  - plan() (kernels/topk.py) cuts the docs into about one wave of splits,
+//    SMs x the blocks per SM that the CUDA runtime reports for this pass
+//    (score_topk_stream_occupancy), so pass 2 merges a few hundred lists.
+//  - Times at N=1M, D=128, k=10, both passes (kernels/topk_variants.py on
+//    an NVIDIA H100 80GB HBM3, 700.00 W): Q=1 f32 0.197 ms,
+//    bf16 0.126 (the pass it replaced took 0.527 and 0.520); Q=4 f32 0.264,
+//    bf16 0.212. ptxas: 64 registers at Q=1 f32 and 80 in bf16 (4 and 3
+//    blocks an SM), 108-128 f32 and 128-248 bf16 at Q=2..4, no spills.
+//    PERF.md section 6 has the final run beside the bound, the plain
+//    version and torch.topk of the matmul.
+//
+// score_topk_tiles (Q >= 5). At Q=256, N=1M, D=128 in f32 it is bound by
+// operations: 2*256*1e6*128 = 6.55e10 FLOP / 67 TFLOP/s = 0.98 ms against
+// 0.15 ms of doc reads. So the inner loop has to be bound by FFMA issue,
+// not by shared memory or by waiting on loads. It sums f32 FMAs on the CUDA
+// cores in a fixed order over D; a later change can run bf16 docs through
+// wgmma.
 //  - A block of 128 threads owns 32 queries x BN=256 docs a tile; each
 //    thread keeps an 8 x 8 register tile (64 f32 sums): warp w holds
 //    queries 8w..8w+7, lane l docs 4l..4l+3 and 128+4l..128+4l+3.
@@ -53,12 +83,13 @@
 //    cannot transpose or widen, so they are not used.
 //  - Selection: after a tile's D loop each thread tests its scores against
 //    its 8 queries' k-th best and queues those that pass, one half tile
-//    (128 docs) at a time, in a queue that reuses the staging buffers; the
-//    insertion and the total order are pass 1's above. Shared memory is
+//    (128 docs) at a time, in a queue that reuses the staging buffers, and
+//    one thread per query insertion-sorts it into that query's top-k.
+//    Shared memory is
 //    37,376 + 256 k + 256 bytes: 40,192 at k=10, 103,168 at k=256.
 //  - Times at N=1M, D=128, k=10 (chip_smoke.py, NVIDIA H100 80GB HBM3,
 //    700.00 W, the old pass 1 and this one timed in one run): Q=256 f32
-//    5.52 ms with score_topk_splits<float, 8>, 2.57-2.58 ms with this kernel
+//    5.52 ms with the pass it replaced, 2.57-2.58 ms with this kernel
 //    (bound 0.98 ms by operations); Q=256 bf16 6.95 -> 2.67-2.69; Q=32 f32
 //    1.02 -> 0.48. 155 registers (f32), 149 (bf16), no spills: 3 blocks an
 //    SM at k=10, 2 at k=256.
@@ -70,10 +101,7 @@
 
 namespace {
 
-constexpr int TN = 128;             // doc rows per tile (4 per lane of a warp)
-constexpr int DK = 32;              // depth of one staged chunk
-constexpr int DK_PAD = DK + 1;      // doc-tile row stride: lanes hit distinct banks
-constexpr int THREADS1 = 128;       // pass 1: 4 warps, warp w owns queries w*R..w*R+R-1
+constexpr int THREADS1 = 128;       // score_topk_tiles: 4 warps
 constexpr int THREADS2 = 256;       // pass 2
 constexpr int MAX_SPLITS = 1024;
 constexpr float MASKED = -1e30f;
@@ -85,130 +113,6 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162floa
 // The result order: score descending, then index ascending.
 __device__ __forceinline__ bool ranks_before(float as, int ai, float bs, int bi) {
     return as > bs || (as == bs && ai < bi);
-}
-
-template <typename T, int R>
-__global__ void __launch_bounds__(THREADS1)
-score_topk_splits(const T* __restrict__ docs, const T* __restrict__ queries,
-                  long long n, int n_queries, int dim, int k, long long n_docs,
-                  long long split_len, float* __restrict__ cand_v,
-                  int* __restrict__ cand_i) {
-    constexpr int QB = 4 * R;
-    extern __shared__ float smem[];
-    float* q_s = smem;                                  // [QB][DK]
-    float* d_s = q_s + QB * DK;                         // [TN][DK_PAD]
-    float* top_v = d_s + TN * DK_PAD;                   // [QB][k], sorted
-    float* queue_v = top_v + QB * k;                    // [QB][TN]
-    int* top_i = reinterpret_cast<int*>(queue_v + QB * TN);  // [QB][k]
-    int* queue_i = top_i + QB * k;                      // [QB][TN]
-    int* queue_n = queue_i + QB * TN;                   // [QB]
-    int* filled = queue_n + QB;                         // [QB]
-
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;      // docs lane, lane+32, lane+64, lane+96 of a tile
-    const int warp = tid >> 5;      // queries warp*R .. warp*R+R-1 of the block
-    const int q0 = blockIdx.x * QB;
-    const int split = blockIdx.y;
-    const long long begin = (long long)split * split_len;
-    const long long end = min(begin + split_len, n);
-
-    if (tid < QB) {
-        queue_n[tid] = 0;
-        filled[tid] = 0;
-    }
-    __syncthreads();
-
-    for (long long t0 = begin; t0 < end; t0 += TN) {
-        float acc[R][4];
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-        for (int d0 = 0; d0 < dim; d0 += DK) {
-            for (int e = tid; e < QB * DK; e += THREADS1) {
-                const int r = e / DK, c = e % DK;
-                q_s[e] = (q0 + r < n_queries && d0 + c < dim)
-                             ? widen(queries[(long long)(q0 + r) * dim + d0 + c]) : 0.f;
-            }
-            for (int e = tid; e < TN * DK; e += THREADS1) {
-                const int r = e / DK, c = e % DK;
-                const long long row = t0 + r;
-                d_s[r * DK_PAD + c] = (row < end && d0 + c < dim)
-                                          ? widen(docs[row * dim + d0 + c]) : 0.f;
-            }
-            __syncthreads();
-            const int depth = min(DK, dim - d0);
-            for (int kk = 0; kk < depth; ++kk) {
-                float qv[R], dv[4];
-#pragma unroll
-                for (int i = 0; i < R; ++i) qv[i] = q_s[(warp * R + i) * DK + kk];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) dv[j] = d_s[(lane + 32 * j) * DK_PAD + kk];
-#pragma unroll
-                for (int i = 0; i < R; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], dv[j], acc[i][j]);
-            }
-            __syncthreads();
-        }
-
-        // queue every score that beats its query's current k-th best
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-            const int ql = warp * R + i;
-            if (q0 + ql >= n_queries) continue;
-            const bool full = filled[ql] == k;
-            const float kth_v = full ? top_v[ql * k + k - 1] : 0.f;
-            const int kth_i = full ? top_i[ql * k + k - 1] : 0;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const long long doc = t0 + lane + 32 * j;
-                if (doc >= end) continue;
-                const float s = doc < n_docs ? acc[i][j] : MASKED;
-                if (!full || ranks_before(s, (int)doc, kth_v, kth_i)) {
-                    const int p = atomicAdd(&queue_n[ql], 1);
-                    queue_v[ql * TN + p] = s;
-                    queue_i[ql * TN + p] = (int)doc;
-                }
-            }
-        }
-        __syncthreads();
-
-        // one thread per query insertion-sorts its queue into the top-k
-        if (tid < QB) {
-            float* tv = top_v + tid * k;
-            int* ti = top_i + tid * k;
-            int f = filled[tid];
-            const int m = queue_n[tid];
-            for (int c = 0; c < m; ++c) {
-                const float s = queue_v[tid * TN + c];
-                const int idx = queue_i[tid * TN + c];
-                if (f == k && !ranks_before(s, idx, tv[k - 1], ti[k - 1])) continue;
-                int p = f < k ? f : k - 1;
-                while (p > 0 && ranks_before(s, idx, tv[p - 1], ti[p - 1])) {
-                    tv[p] = tv[p - 1];
-                    ti[p] = ti[p - 1];
-                    --p;
-                }
-                tv[p] = s;
-                ti[p] = idx;
-                if (f < k) ++f;
-            }
-            filled[tid] = f;
-            queue_n[tid] = 0;
-        }
-        __syncthreads();
-    }
-
-    for (int e = tid; e < QB * k; e += THREADS1) {
-        const int ql = e / k, r = e % k;
-        if (q0 + ql >= n_queries) continue;
-        const long long o = ((long long)(q0 + ql) * gridDim.y + split) * k + r;
-        const bool real = r < filled[ql];
-        cand_v[o] = real ? top_v[e] : -INFINITY;
-        cand_i[o] = real ? top_i[e] : NO_INDEX;
-    }
 }
 
 constexpr int BQ = 32;                  // score_topk_tiles: queries a block
@@ -257,6 +161,213 @@ __device__ __forceinline__ void widen_unit(uint4 u, float (&x)[16 / sizeof(T)]) 
         } else {
             x[2 * j] = __uint_as_float(w[j] << 16);
             x[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+        }
+    }
+}
+
+constexpr int ROWS = 8;             // score_topk_stream: rows a lane has in flight
+constexpr int STREAM_WARPS = 8;     // warps a block
+constexpr int STREAM_THREADS = 32 * STREAM_WARPS;
+constexpr int STREAM_COLS = 128;    // columns a team reads in one pass over a row
+constexpr unsigned FULL = 0xffffffffu;
+
+__host__ __device__ constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
+
+// Insert (s, i) into a warp's sorted list lv/li of f entries (at most k),
+// with the whole warp: a ballot count gives its place, then the lanes move
+// the entries behind it up one place, 32 at a time from the top. The
+// caller has pruned it: when the list is full, it ranks before entry k-1.
+__device__ __forceinline__ void warp_insert(float* lv, int* li, int& f, int k, float s,
+                                            int i, int lane) {
+    int p = 0;
+    for (int e0 = 0; e0 < f; e0 += 32) {
+        const int e = e0 + lane;
+        p += __popc(__ballot_sync(FULL, e < f && ranks_before(lv[e], li[e], s, i)));
+    }
+    for (int hi = min(f, k - 1); hi > p; hi -= 32) {
+        const int e = hi - 1 - lane;
+        const bool move = e >= p;
+        float v = 0.f;
+        int vi = 0;
+        if (move) { v = lv[e]; vi = li[e]; }
+        __syncwarp();
+        if (move) { lv[e + 1] = v; li[e + 1] = vi; }
+        __syncwarp();
+    }
+    if (lane == 0) { lv[p] = s; li[p] = i; }
+    __syncwarp();
+    f = min(f + 1, k);
+}
+
+// One step of the reduce-scatter, then the next: the lanes of a team whose
+// bit `off` is set keep the upper half of their rows, the others the lower
+// half, and each adds its partner's partial sums of the half it keeps.
+template <int TL, int NQ, int J>
+__device__ __forceinline__ void halve_rows(float (&acc)[ROWS][NQ], int tl) {
+    if constexpr ((ROWS >> J) > 1) {
+        constexpr int off = TL >> (J + 1), h = ROWS >> (J + 1);
+        const bool upper = tl & off;
+#pragma unroll
+        for (int r = 0; r < h; ++r)
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) {
+                const float send = upper ? acc[r][qq] : acc[r + h][qq];
+                const float keep = upper ? acc[r + h][qq] : acc[r][qq];
+                acc[r][qq] = keep + __shfl_xor_sync(FULL, send, off);
+            }
+        halve_rows<TL, NQ, J + 1>(acc, tl);
+    }
+}
+
+size_t stream_smem(int n_queries, int dim, int k) {
+    const int dpad = (dim + STREAM_COLS - 1) / STREAM_COLS * STREAM_COLS;
+    return sizeof(float) * (n_queries * dpad + STREAM_WARPS * n_queries * k)
+         + sizeof(int) * (STREAM_WARPS * n_queries * k + STREAM_WARPS * n_queries);
+}
+
+// At Q=1 ptxas would take ~116 registers and fit 2 blocks an SM; capped at
+// 80 it fits 3-4 with no spills, more loads in flight. At Q >= 2 the same
+// cap spills.
+template <typename T, int NQ>
+__global__ void __launch_bounds__(STREAM_THREADS, NQ == 1 ? 3 : 1)
+score_topk_stream(const T* __restrict__ docs, const T* __restrict__ queries, long long n,
+                  int dim, int k, long long n_docs, long long split_len, int vec,
+                  float* __restrict__ cand_v, int* __restrict__ cand_i) {
+    constexpr int V = 16 / sizeof(T);           // values a 16-byte unit
+    constexpr int TL = STREAM_COLS / V;         // lanes a team (one row at a time)
+    constexpr int TEAMS = 32 / TL;              // rows a warp reads at once
+    constexpr int RPW = ROWS * TEAMS;           // rows a warp iteration
+    constexpr int STEPS = ilog2(ROWS);          // reduce-scatter steps
+    static_assert(TL >= ROWS && (ROWS & (ROWS - 1)) == 0, "the butterfly halves ROWS per step");
+
+    const int dpad = (dim + STREAM_COLS - 1) / STREAM_COLS * STREAM_COLS;
+    extern __shared__ float4 smem4[];
+    float* q_s = reinterpret_cast<float*>(smem4);                   // [NQ][dpad]
+    float* list_v = q_s + NQ * dpad;                                // [warps][NQ][k], sorted
+    int* list_i = reinterpret_cast<int*>(list_v + STREAM_WARPS * NQ * k);
+    int* list_n = list_i + STREAM_WARPS * NQ * k;                   // [warps][NQ]
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int tl = lane % TL, team = lane / TL;
+    const int split = blockIdx.x;
+    const long long begin = (long long)split * split_len;
+    const long long end = min(begin + split_len, n);
+
+    for (int e = tid; e < NQ * dpad; e += STREAM_THREADS) {
+        const int qq = e / dpad, c = e % dpad;
+        q_s[e] = c < dim ? widen(queries[(long long)qq * dim + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // After the reduce-scatter a lane holds row `held` of its team's ROWS;
+    // the lanes of a row agree, and the lowest of them tests it.
+    int held = 0;
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j)
+        if (tl & (TL >> (j + 1))) held += ROWS >> (j + 1);
+    const bool owner = (tl & (TL / ROWS - 1)) == 0;
+
+    float* my_v = list_v + warp * NQ * k;
+    int* my_i = list_i + warp * NQ * k;
+    int filled[NQ];
+    float kth_v[NQ];
+    int kth_i[NQ];
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) { filled[qq] = 0; kth_v[qq] = 0.f; kth_i[qq] = 0; }
+
+    // warp w reads rows base .. base + RPW - 1, row base + r * TEAMS + team
+    // in slot r of its lane's team; the block's warps take turns
+    for (long long base = begin + (long long)warp * RPW; base < end;
+         base += (long long)STREAM_WARPS * RPW) {
+        float acc[ROWS][NQ];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) acc[r][qq] = 0.f;
+
+        for (int col = tl * V; col < dpad; col += STREAM_COLS) {
+            uint4 u[ROWS];
+#pragma unroll
+            for (int r = 0; r < ROWS; ++r)
+                u[r] = load_unit(docs, base + r * TEAMS + team, end, col, dim, vec);
+            float qv[NQ][V];
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+                for (int j = 0; j < V; j += 4) {
+                    const float4 a = *reinterpret_cast<const float4*>(q_s + qq * dpad + col + j);
+                    qv[qq][j] = a.x; qv[qq][j + 1] = a.y; qv[qq][j + 2] = a.z; qv[qq][j + 3] = a.w;
+                }
+#pragma unroll
+            for (int r = 0; r < ROWS; ++r) {
+                float x[V];
+                widen_unit<T>(u[r], x);
+#pragma unroll
+                for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+                    for (int j = 0; j < V; ++j) acc[r][qq] = fmaf(qv[qq][j], x[j], acc[r][qq]);
+            }
+        }
+
+        // reduce-scatter across the team: each step keeps half the rows
+        halve_rows<TL, NQ, 0>(acc, tl);
+#pragma unroll
+        for (int off = TL / ROWS / 2; off > 0; off >>= 1)
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) acc[0][qq] += __shfl_xor_sync(FULL, acc[0][qq], off);
+
+        // the prune: only rows that beat the warp's k-th best are inserted
+        const long long doc = base + held * TEAMS + team;
+        const bool live = owner && doc < end;
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) {
+            const float s = doc < n_docs ? acc[0][qq] : MASKED;
+            float* lv = my_v + qq * k;
+            int* li = my_i + qq * k;
+            unsigned m = __ballot_sync(
+                FULL, live && (filled[qq] < k || ranks_before(s, (int)doc, kth_v[qq], kth_i[qq])));
+            while (m) {
+                const int src = __ffs(m) - 1;
+                warp_insert(lv, li, filled[qq], k, __shfl_sync(FULL, s, src),
+                            __shfl_sync(FULL, (int)doc, src), lane);
+                if (filled[qq] == k) { kth_v[qq] = lv[k - 1]; kth_i[qq] = li[k - 1]; }
+                m &= m - 1;
+                m &= __ballot_sync(FULL, live && (filled[qq] < k
+                                                  || ranks_before(s, (int)doc, kth_v[qq], kth_i[qq])));
+            }
+        }
+    }
+
+    if (lane == 0) {
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) list_n[warp * NQ + qq] = filled[qq];
+    }
+    __syncthreads();
+
+    // warp qq merges the warps' lists of query qq: lane w < STREAM_WARPS
+    // holds the head of warp w's list, k rounds of an arg-best
+    if (warp < NQ) {
+        const int qq = warp;
+        const int w = lane < STREAM_WARPS ? lane : 0;
+        const int len = lane < STREAM_WARPS ? list_n[w * NQ + qq] : 0;
+        const float* wv = list_v + (w * NQ + qq) * k;
+        const int* wi = list_i + (w * NQ + qq) * k;
+        const long long o = ((long long)qq * gridDim.x + split) * k;
+        int h = 0;
+        for (int r = 0; r < k; ++r) {
+            float bv = h < len ? wv[h] : -INFINITY;
+            int bi = h < len ? wi[h] : NO_INDEX;
+            int bs = h < len ? lane : -1;
+#pragma unroll
+            for (int off = 1; off < STREAM_WARPS; off <<= 1) {
+                const float ov = __shfl_xor_sync(FULL, bv, off);
+                const int oi = __shfl_xor_sync(FULL, bi, off);
+                const int os = __shfl_xor_sync(FULL, bs, off);
+                if (os >= 0 && (bs < 0 || ranks_before(ov, oi, bv, bi))) { bv = ov; bi = oi; bs = os; }
+            }
+            if (bs == lane) ++h;
+            if (lane == 0) { cand_v[o + r] = bv; cand_i[o + r] = bi; }
         }
     }
 }
@@ -505,27 +616,73 @@ score_topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_
     }
 }
 
-template <typename T, int R>
-cudaError_t launch(const void* docs, const void* queries, long long n, int n_queries,
-                   int dim, int k, long long n_docs, int n_splits, long long split_len,
-                   float* cand_v, int* cand_i, float* out_v, int* out_i,
-                   cudaStream_t stream) {
-    constexpr int QB = 4 * R;
-    const size_t smem = sizeof(float) * (QB * DK + TN * DK_PAD + QB * k + QB * TN)
-                      + sizeof(int) * (QB * k + QB * TN + 2 * QB);
-    cudaError_t err = cudaFuncSetAttribute(score_topk_splits<T, R>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+template <typename T, int NQ>
+cudaError_t stream_attributes(int dim, int k) {
+    return cudaFuncSetAttribute(score_topk_stream<T, NQ>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)stream_smem(NQ, dim, k));
+}
+
+template <typename T, int NQ>
+cudaError_t launch_stream_q(const void* docs, const void* queries, long long n, int dim, int k,
+                            long long n_docs, int n_splits, long long split_len,
+                            float* cand_v, int* cand_i, cudaStream_t stream) {
+    cudaError_t err = stream_attributes<T, NQ>(dim, k);
     if (err != cudaSuccess) return err;
-    const dim3 grid((n_queries + QB - 1) / QB, n_splits);
-    score_topk_splits<T, R><<<grid, THREADS1, smem, stream>>>(
-        static_cast<const T*>(docs), static_cast<const T*>(queries), n, n_queries,
-        dim, k, n_docs, split_len, cand_v, cand_i);
-    err = cudaGetLastError();
+    const int vec = dim % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0;
+    score_topk_stream<T, NQ><<<n_splits, STREAM_THREADS, stream_smem(NQ, dim, k), stream>>>(
+        static_cast<const T*>(docs), static_cast<const T*>(queries), n, dim, k, n_docs,
+        split_len, vec, cand_v, cand_i);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stream(const void* docs, const void* queries, long long n, int n_queries,
+                          int dim, int k, long long n_docs, int n_splits, long long split_len,
+                          float* cand_v, int* cand_i, float* out_v, int* out_i,
+                          cudaStream_t stream) {
+    cudaError_t err;
+    switch (n_queries) {
+        case 1: err = launch_stream_q<T, 1>(docs, queries, n, dim, k, n_docs, n_splits,
+                                            split_len, cand_v, cand_i, stream); break;
+        case 2: err = launch_stream_q<T, 2>(docs, queries, n, dim, k, n_docs, n_splits,
+                                            split_len, cand_v, cand_i, stream); break;
+        case 3: err = launch_stream_q<T, 3>(docs, queries, n, dim, k, n_docs, n_splits,
+                                            split_len, cand_v, cand_i, stream); break;
+        case 4: err = launch_stream_q<T, 4>(docs, queries, n, dim, k, n_docs, n_splits,
+                                            split_len, cand_v, cand_i, stream); break;
+        default: return cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess) return err;
     score_topk_merge<<<n_queries, THREADS2, 0, stream>>>(cand_v, cand_i, n_splits, k,
                                                          out_v, out_i);
     return cudaGetLastError();
+}
+
+template <typename T, int NQ>
+cudaError_t stream_occupancy_q(int dim, int k, int* blocks_per_sm, int* registers,
+                               int* local_bytes) {
+    cudaError_t err = stream_attributes<T, NQ>(dim, k);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, score_topk_stream<T, NQ>);
+    if (err != cudaSuccess) return err;
+    *registers = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, score_topk_stream<T, NQ>, STREAM_THREADS, stream_smem(NQ, dim, k));
+}
+
+template <typename T>
+cudaError_t stream_occupancy(int n_queries, int dim, int k, int* blocks_per_sm, int* registers,
+                             int* local_bytes) {
+    switch (n_queries) {
+        case 1: return stream_occupancy_q<T, 1>(dim, k, blocks_per_sm, registers, local_bytes);
+        case 2: return stream_occupancy_q<T, 2>(dim, k, blocks_per_sm, registers, local_bytes);
+        case 3: return stream_occupancy_q<T, 3>(dim, k, blocks_per_sm, registers, local_bytes);
+        case 4: return stream_occupancy_q<T, 4>(dim, k, blocks_per_sm, registers, local_bytes);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 size_t tiles_smem(int k) {
@@ -573,8 +730,8 @@ extern "C" {
 // docs (n, dim) and queries (n_queries, dim), both row-major and of one type
 // (float32, or bfloat16 when docs_bf16 != 0); cand_v/cand_i are
 // (n_queries, n_splits, k) scratch; out_v/out_i are (n_queries, k).
-// rows_per_thread picks pass 1: 1 (score_topk_splits, 4 queries a block)
-// or 8 (score_topk_tiles, 32 queries a block).
+// rows_per_thread picks pass 1: 1 (score_topk_stream, 1 <= n_queries <= 4,
+// one block a split) or 8 (score_topk_tiles, 32 queries a block).
 // Returns the cudaError_t of the launches (0 on success).
 int score_topk_launch(const void* docs, const void* queries, int docs_bf16,
                       long long n, int n_queries, int dim, int k, long long n_docs,
@@ -585,16 +742,16 @@ int score_topk_launch(const void* docs, const void* queries, int docs_bf16,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (docs_bf16) {
         if (rows_per_thread == 1)
-            return (int)launch<__nv_bfloat16, 1>(docs, queries, n, n_queries, dim, k, n_docs,
-                                                 n_splits, split_len, cand_v, cand_i,
-                                                 out_v, out_i, s);
+            return (int)launch_stream<__nv_bfloat16>(docs, queries, n, n_queries, dim, k,
+                                                     n_docs, n_splits, split_len, cand_v,
+                                                     cand_i, out_v, out_i, s);
         return (int)launch_tiles<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
                                                 n_splits, split_len, cand_v, cand_i,
                                                 out_v, out_i, s);
     }
     if (rows_per_thread == 1)
-        return (int)launch<float, 1>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
-                                     split_len, cand_v, cand_i, out_v, out_i, s);
+        return (int)launch_stream<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
+                                         split_len, cand_v, cand_i, out_v, out_i, s);
     return (int)launch_tiles<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
                                     split_len, cand_v, cand_i, out_v, out_i, s);
 }
@@ -608,4 +765,17 @@ int score_topk_tiles_occupancy(int docs_bf16, int k, int* smem_bytes, int* block
                      : (int)tiles_occupancy<float>(k, blocks_per_sm);
 }
 
+// The same for a score_topk_stream block of n_queries (1..4) at this dim and
+// k, with the registers a thread and the local memory a thread (spills)
+// that the compiler gave it.
+int score_topk_stream_occupancy(int docs_bf16, int n_queries, int dim, int k, int* smem_bytes,
+                                int* blocks_per_sm, int* registers, int* local_bytes) {
+    *smem_bytes = (int)stream_smem(n_queries, dim, k);
+    return docs_bf16 ? (int)stream_occupancy<__nv_bfloat16>(n_queries, dim, k, blocks_per_sm,
+                                                            registers, local_bytes)
+                     : (int)stream_occupancy<float>(n_queries, dim, k, blocks_per_sm,
+                                                    registers, local_bytes);
+}
+
 }  // extern "C"
+

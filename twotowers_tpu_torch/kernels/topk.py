@@ -24,8 +24,8 @@ from . import build
 MAX_K = 256
 MAX_DIM = 1024
 MAX_SPLITS = 1024   # score_topk.cu:MAX_SPLITS
-TILE_N = 128        # score_topk.cu:TN, doc rows per tile of the Q <= 4 pass 1
-BLOCKS_PER_SM = 8   # Q <= 4 pass-1 blocks to aim for on each SM
+STREAM_ROWS = 128   # Q <= 4 splits are a whole number of these rows: one block
+                    # iteration of score_topk_stream reads 64 (f32) or 128 (bf16)
 BATCH_TILE_N = 256  # score_topk.cu:BN, doc rows per tile of the Q >= 5 pass 1
 
 # kernel launches so far; a run reads it to show it went through the kernel
@@ -38,19 +38,19 @@ def plan(n_queries: int, n: int, sm_count: int,
          blocks_per_sm: int) -> Tuple[int, int, int]:
     """(rows_per_thread, n_splits, split_len) for a call.
 
-    Q <= 4 takes ``score_topk_splits`` (4 queries a block, tiles of
-    ``TILE_N`` docs) and aims at ``BLOCKS_PER_SM`` blocks on every SM, so
-    that one query still fills the card. Q >= 5 takes ``score_topk_tiles``
-    (32 queries a block, tiles of ``BATCH_TILE_N``) and aims at
-    ``blocks_per_sm``, the blocks of it that fit on an SM at once
-    (``tiles_occupancy``): about one wave of splits, each as long as it can
-    be. The doc axis is cut into that many splits, each a whole number of
-    tiles.
+    Q <= 4 takes ``score_topk_stream`` (all the queries in one block, splits
+    a whole number of ``STREAM_ROWS`` docs); Q >= 5 takes
+    ``score_topk_tiles`` (32 queries a block, tiles of ``BATCH_TILE_N``).
+    Either aims at ``blocks_per_sm``, the blocks of its pass that fit on an
+    SM at once (``stream_occupancy`` or ``tiles_occupancy``): about one
+    wave of splits, each as long as it can be. The doc axis is cut into
+    that many splits, each a whole number of tiles.
     """
     if n_queries <= 4:
-        rows, tile, per_sm = 1, TILE_N, BLOCKS_PER_SM
+        rows, tile = 1, STREAM_ROWS
     else:
-        rows, tile, per_sm = 8, BATCH_TILE_N, max(1, blocks_per_sm)
+        rows, tile = 8, BATCH_TILE_N
+    per_sm = max(1, blocks_per_sm)
     q_blocks = -(-n_queries // (4 * rows))
     want = -(-sm_count * per_sm // q_blocks)
     tiles = -(-n // tile)
@@ -91,10 +91,14 @@ def _lib() -> ctypes.CDLL:
         occ = lib.score_topk_tiles_occupancy
         occ.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
         occ.restype = i32
+        occ = lib.score_topk_stream_occupancy
+        occ.argtypes = [i32, i32, i32, i32] + [ctypes.POINTER(i32)] * 4
+        occ.restype = i32
     return lib
 
 
 _occupancy: Dict[Tuple[int, bool, int], Tuple[int, int]] = {}
+_stream_occupancy: Dict[Tuple[int, bool, int, int, int], Dict[str, int]] = {}
 
 
 def tiles_occupancy(device: torch.device, dtype: torch.dtype, k: int) -> Tuple[int, int]:
@@ -111,6 +115,26 @@ def tiles_occupancy(device: torch.device, dtype: torch.dtype, k: int) -> Tuple[i
             raise RuntimeError(f"score_topk occupancy query failed with cudaError_t {err}")
         _occupancy[key] = (smem.value, blocks.value)
     return _occupancy[key]
+
+
+def stream_occupancy(device: torch.device, dtype: torch.dtype, n_queries: int, dim: int,
+                     k: int) -> Dict[str, int]:
+    """A Q <= 4 pass-1 block for ``n_queries`` queries at this ``dim`` and
+    ``k`` on the card, as the CUDA runtime reports it: ``smem_bytes``,
+    ``blocks_per_sm``, ``registers`` a thread and ``local_bytes`` a thread
+    (spills)."""
+    dpad = -(-dim // 128) * 128  # shared memory depends on D through its padding
+    key = (torch.device(device).index or 0, dtype == torch.bfloat16, n_queries, dpad, k)
+    if key not in _stream_occupancy:
+        out = [ctypes.c_int() for _ in range(4)]
+        with torch.cuda.device(device):
+            err = _lib().score_topk_stream_occupancy(int(key[1]), n_queries, dpad, k,
+                                                     *map(ctypes.byref, out))
+        if err != 0:
+            raise RuntimeError(f"score_topk occupancy query failed with cudaError_t {err}")
+        _stream_occupancy[key] = dict(zip(("smem_bytes", "blocks_per_sm", "registers",
+                                           "local_bytes"), (o.value for o in out)))
+    return _stream_occupancy[key]
 
 
 def score_topk_cuda(
@@ -132,7 +156,10 @@ def score_topk_cuda(
     queries = queries.to(doc_matrix.dtype).contiguous()
     n_queries = queries.shape[0]
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = tiles_occupancy(device, doc_matrix.dtype, k)[1] if n_queries > 4 else 0
+    if n_queries > 4:
+        per_sm = tiles_occupancy(device, doc_matrix.dtype, k)[1]
+    else:
+        per_sm = stream_occupancy(device, doc_matrix.dtype, n_queries, dim, k)["blocks_per_sm"]
     rows, n_splits, split_len = plan(n_queries, n, sm_count, per_sm)
 
     cand_v = torch.empty((n_queries, n_splits, k), dtype=torch.float32, device=device)

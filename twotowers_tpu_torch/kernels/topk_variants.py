@@ -1,21 +1,28 @@
-"""Time variants of the score + top-k kernel's Q >= 5 pass in turns on one card.
+"""Time variants of the score + top-k kernel in turns on one card.
 
-    python -m twotowers_tpu_torch.kernels.topk_variants
+    python -m twotowers_tpu_torch.kernels.topk_variants [--against DIR] [--only NAME ...]
 
 Each variant is ``csrc/score_topk.cu`` with one constant or launch bound
 rewritten, compiled by ``nvcc`` (all at once) into ``build/topk_variants/``,
-or the shipped kernel under another plan. Each is first held bit-equal to
-the plain version on integer-valued inputs, then timed with CUDA events at
-N=1M, D=128, k=10 (Q=256 in f32 and bf16, Q=32 in f32) in the order
-A B C ... C B A; a time is the mean of its two turns. Prints one JSON line
-per variant; then the opcode counts of the shipped f32 pass 1
-(``cuobjdump -sass``) and the SM clock and power that ``nvidia-smi``
-samples while it runs Q=256 f32 for a few seconds; last the card's name
-and power limit.
+or the shipped kernel under another plan. ``--against DIR`` adds the
+``score_topk.cu`` of another checkout of the repo (say, a ``git archive``
+of the parent commit) as the variant "against", under this tree's plan; a
+source without ``score_topk_stream_occupancy`` gets 8 Q <= 4 blocks an SM,
+the count that the plan once fixed. ``--only`` keeps the named variants.
+Each variant is first held bit-equal to the plain version on
+integer-valued inputs (Q=1, 4 and 257), then timed with CUDA events at
+N=1M, D=128 (Q=1 and 4 in f32 and bf16, Q=1 at k=256, Q=32 in f32 and
+bf16, Q=256 in f32 and bf16; k=10 elsewhere) in the order A B C ... C B A;
+a time is the mean of its two turns. Prints one JSON line per variant;
+then the opcode counts of the shipped f32 passes 1 (``cuobjdump -sass``)
+and the SM clock and power that ``nvidia-smi`` samples while the shipped
+kernel runs Q=256 f32 and Q=1 f32 for a few seconds each; last the card's
+name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import json
@@ -31,12 +38,16 @@ from ..ops.topk_score import score_topk_reference
 
 OUT_DIR = build.BUILD_DIR.parent / "topk_variants"
 K, N, DIM = 10, 1_000_000, 128
-SHAPES = [(256, torch.float32), (256, torch.bfloat16), (32, torch.float32)]
+SHAPES = [(1, torch.float32, K), (1, torch.bfloat16, K), (4, torch.float32, K),
+          (4, torch.bfloat16, K), (1, torch.float32, 256), (32, torch.float32, K),
+          (32, torch.bfloat16, K), (256, torch.float32, K), (256, torch.bfloat16, K)]
 
 
 def one_full_wave(q, n, sm, per_sm):
     """The plan with the split count rounded down, so that every block fits
     in one wave (the shipped plan rounds up: a few blocks more)."""
+    if q <= 4:
+        return topk.plan(q, n, sm, per_sm)
     tiles, q_blocks = -(-n // topk.BATCH_TILE_N), -(-q // 32)
     n_splits = max(1, min(sm * per_sm // q_blocks, tiles, topk.MAX_SPLITS))
     split_len = -(-tiles // n_splits) * topk.BATCH_TILE_N
@@ -56,16 +67,27 @@ VARIANTS = {
     "BS=BN+8": ([("constexpr int BS = BN + 4;", "constexpr int BS = BN + 8;")], topk.plan),
     "launch bound 4 blocks": ([("__launch_bounds__(THREADS1)\nscore_topk_tiles(",
                                 "__launch_bounds__(THREADS1, 4)\nscore_topk_tiles(")], topk.plan),
+    "stream ROWS=4": ([("constexpr int ROWS = 8;", "constexpr int ROWS = 4;")], topk.plan),
+    "stream 4 warps": ([("constexpr int STREAM_WARPS = 8;", "constexpr int STREAM_WARPS = 4;")],
+                       topk.plan),
+    "stream 16 warps": ([("constexpr int STREAM_WARPS = 8;",
+                          "constexpr int STREAM_WARPS = 16;")], topk.plan),
+    "stream launch bound 3 blocks at every Q": ([("NQ == 1 ? 3 : 1)", "3)")], topk.plan),
+    "stream no launch bound": ([("NQ == 1 ? 3 : 1)", "1)")], topk.plan),
 }
+AGAINST = "against"
 
 
-def compile_variants() -> dict:
-    """name -> (loaded library, ptxas lines of score_topk_tiles, library path)."""
+def compile_variants(against=None) -> dict:
+    """name -> (loaded library, ptxas lines of passes 1, library path)."""
     source = (build.CSRC_DIR / "score_topk.cu").read_text()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, procs = build.find_nvcc(), {}
-    for name, (rewrites, _) in VARIANTS.items():
-        text = source
+    todo = {name: (rewrites, source) for name, (rewrites, _) in VARIANTS.items()}
+    if against is not None:
+        todo[AGAINST] = ([], (Path(against) / "twotowers_tpu_torch" / "csrc"
+                              / "score_topk.cu").read_text())
+    for name, (rewrites, text) in todo.items():
         for old, new in rewrites:
             if text.count(old) != 1:
                 raise RuntimeError(f"variant {name!r}: {old!r} is not in the source once")
@@ -82,21 +104,23 @@ def compile_variants() -> dict:
             raise RuntimeError(f"variant {name!r} did not build:\n{out[-2000:]}")
         lines = out.splitlines()
         ptxas = [lines[i + j].strip() for i, line in enumerate(lines)
-                 if "Function properties" in line and "score_topk_tiles" in line
-                 for j in (1, 2) if i + j < len(lines)]
+                 if "Function properties" in line and ("score_topk_tiles" in line
+                                                       or "score_topk_stream" in line)
+                 for j in (0, 1, 2) if i + j < len(lines)]
         libs[name] = (ctypes.CDLL(str(lib)), ptxas, lib)
     return libs
 
 
-def sass_opcodes(lib: Path) -> dict:
-    """Opcode counts of score_topk_tiles<float> in ``lib``'s SASS."""
+def sass_opcodes(lib: Path, kernel: str) -> dict:
+    """Opcode counts of the kernel whose mangled name holds ``kernel`` in
+    ``lib``'s SASS."""
     nvcc = Path(build.find_nvcc())
     sass = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
     counts, inside = collections.Counter(), False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "score_topk_tilesIf" in line
+            inside = kernel in line
         elif inside:
             m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
             if m:
@@ -131,28 +155,36 @@ def launcher(lib: ctypes.CDLL, plan):
                                       ptr, ptr, ptr, ptr, ptr]
     occupancy = {}
 
-    def per_sm(dtype):
-        if dtype not in occupancy:
-            smem, blocks = ctypes.c_int(), ctypes.c_int()
-            err = lib.score_topk_tiles_occupancy(int(dtype == torch.bfloat16), K,
-                                                 ctypes.byref(smem), ctypes.byref(blocks))
+    def per_sm(dtype, q, k=K):
+        """(shared-memory bytes, blocks per SM[, registers, local bytes]) of
+        the pass that takes Q=q."""
+        key = (dtype, min(q, 5), k)
+        bf16 = int(dtype == torch.bfloat16)
+        if key not in occupancy:
+            out = [ctypes.c_int() for _ in range(4)]
+            if q > 4:
+                err = lib.score_topk_tiles_occupancy(bf16, k, *map(ctypes.byref, out[:2]))
+            elif hasattr(lib, "score_topk_stream_occupancy"):
+                err = lib.score_topk_stream_occupancy(bf16, q, DIM, k, *map(ctypes.byref, out))
+            else:  # a source whose Q <= 4 plan aimed at a fixed 8 blocks an SM
+                err, out[1].value = 0, 8
             if err != 0:
                 raise RuntimeError(f"occupancy query failed: cudaError_t {err}")
-            occupancy[dtype] = (smem.value, blocks.value)
-        return occupancy[dtype]
+            occupancy[key] = tuple(o.value for o in (out if q <= 4 else out[:2]))
+        return occupancy[key]
 
-    def run(docs, queries):
+    def run(docs, queries, k=K):
         n, dim = docs.shape
         q = queries.shape[0]
         sm = torch.cuda.get_device_properties(docs.device).multi_processor_count
-        rows, n_splits, split_len = plan(q, n, sm, per_sm(docs.dtype)[1])
-        cand_v = torch.empty((q, n_splits, K), dtype=torch.float32, device=docs.device)
-        cand_i = torch.empty((q, n_splits, K), dtype=torch.int32, device=docs.device)
-        out_v = torch.empty((q, K), dtype=torch.float32, device=docs.device)
-        out_i = torch.empty((q, K), dtype=torch.int32, device=docs.device)
+        rows, n_splits, split_len = plan(q, n, sm, per_sm(docs.dtype, q, k)[1])
+        cand_v = torch.empty((q, n_splits, k), dtype=torch.float32, device=docs.device)
+        cand_i = torch.empty((q, n_splits, k), dtype=torch.int32, device=docs.device)
+        out_v = torch.empty((q, k), dtype=torch.float32, device=docs.device)
+        out_i = torch.empty((q, k), dtype=torch.int32, device=docs.device)
         err = lib.score_topk_launch(
             docs.data_ptr(), queries.data_ptr(), int(docs.dtype == torch.bfloat16), n, q, dim,
-            K, n, n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
+            k, n, n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError_t {err}")
@@ -175,39 +207,52 @@ def event_ms(fn, iters: int = 30) -> float:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", help="root of another checkout whose kernel to time too")
+    parser.add_argument("--only", nargs="*", help="the variants to keep (default: all)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("topk_variants: needs a CUDA card")
+    if args.only:
+        for name in set(VARIANTS) - set(args.only) - {"shipped"}:
+            del VARIANTS[name]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    runs, libs = {}, compile_variants()
+    runs, libs = {}, compile_variants(args.against)
     for name, (lib, ptxas, _) in libs.items():
-        run, per_sm = launcher(lib, VARIANTS[name][1])
+        run, per_sm = launcher(lib, VARIANTS[name][1] if name in VARIANTS else topk.plan)
         ints = torch.randint(-2, 3, (100_003, 128), device=dev, generator=gen).float()
         qints = torch.randint(-2, 3, (257, 128), device=dev, generator=gen).float()
         for dtype in (torch.float32, torch.bfloat16):
-            got, want = run(ints.to(dtype), qints.to(dtype)), score_topk_reference(ints.to(dtype), qints, K)
-            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                raise AssertionError(f"variant {name!r} {dtype}: not the plain version's result")
-        runs[name] = (run, {"ptxas": ptxas, "smem_bytes_blocks_per_sm_f32_bf16":
-                            [per_sm(torch.float32), per_sm(torch.bfloat16)]})
+            for q in (1, 4, 257):
+                got = run(ints.to(dtype), qints[:q].to(dtype))
+                want = score_topk_reference(ints.to(dtype), qints[:q], K)
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"variant {name!r} {dtype} Q={q}: not the plain "
+                                         "version's result")
+        runs[name] = (run, {"ptxas": ptxas, "occupancy_f32_bf16": {
+            f"q{q}": [per_sm(torch.float32, q), per_sm(torch.bfloat16, q)] for q in (1, 4, 5)}})
     docs = torch.randn(N, DIM, device=dev, generator=gen)
     docs /= docs.norm(dim=1, keepdim=True)
     inputs = {dtype: docs.to(dtype) for dtype in (torch.float32, torch.bfloat16)}
-    queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in (32, 256)}
+    queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in (1, 4, 32, 256)}
     order = list(runs) + list(runs)[::-1]
-    times = {name: {f"q{q} {dtype}": [] for q, dtype in SHAPES} for name in runs}
+    label = lambda q, dtype, k: f"q{q} {dtype} k{k}"  # noqa: E731
+    times = {name: {label(*shape): [] for shape in SHAPES} for name in runs}
     for name in order:
-        for q, dtype in SHAPES:
+        for q, dtype, k in SHAPES:
             d, qs = inputs[dtype], queries[q].to(dtype)
-            times[name][f"q{q} {dtype}"].append(event_ms(lambda: runs[name][0](d, qs)))
+            times[name][label(q, dtype, k)].append(event_ms(lambda: runs[name][0](d, qs, k)))
     for name, (_, info) in runs.items():
         ms = {shape: sum(t) / len(t) for shape, t in times[name].items()}
         print(json.dumps({"variant": name, "ms": ms, "turns": times[name], **info}), flush=True)
-    print(json.dumps({"sass_opcodes shipped score_topk_tiles<float>":
-                      sass_opcodes(libs["shipped"][2])}), flush=True)
-    d, qs = inputs[torch.float32], queries[256]
-    print(json.dumps({"clocks shipped q256 f32": clocks_while(lambda: runs["shipped"][0](d, qs))}),
-          flush=True)
+    for kernel in ("score_topk_tilesIf", "score_topk_streamIfLi1"):
+        print(json.dumps({f"sass_opcodes shipped {kernel}":
+                          sass_opcodes(libs["shipped"][2], kernel)}), flush=True)
+    for q in (256, 1):
+        d, qs = inputs[torch.float32], queries[q]
+        print(json.dumps({f"clocks shipped q{q} f32":
+                          clocks_while(lambda: runs["shipped"][0](d, qs))}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     return 0
