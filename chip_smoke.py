@@ -38,10 +38,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               latest`` epoch, retrieval from ``best_model``, one step held
               against the same step with the plain versions swapped in, and
               the step's time.
+7. transformer -- ``configs/transformer_tower.yml`` at full width (BPE 2,000
+              merges, max_len 48, positional embedding 128, pre-LN
+              transformer 128 x 2 layers x 4 heads, tied, dropout 0.1,
+              in_batch loss t=0.1, bf16, batch 256, AdamW 1e-3), from the
+              dict ``TRANSFORMER_CONFIG`` (the file as ``load_config``
+              resolves it; pyyaml may be absent) with its paths under
+              ``build/chip_smoke/transformer/`` and its depth cut from 3
+              epochs to 2: ``train_model`` over 16,384 + 100 synthetic
+              triplets (the last batch padded), checks on the BPE vocab,
+              the loss, launches and checkpoints; one step held against
+              the same step with the plain versions swapped in;
+              ``evaluate_model`` of the trained and the initial weights on
+              100 held-out tuples; ``ModelRuntime`` + ``RetrievalService``
+              over 20,000 texts from ``best_model``, 8 searches; then
+              ``bench.py``'s transformer_tower_train step (vocab 8,192,
+              seq 48, batch 4,096) timed and profiled, and the cnn, rnn and
+              transformer towers in f32 on the card against the CPU.
 
-The launch counts are zeroed just before each main path (serve, train) and
-read just after it. Then the kernel table, the nvidia-smi line and, last,
-the result line. Imports nothing of JAX and nothing of the JAX package.
+The launch counts are zeroed just before each main path (serve, train,
+transformer) and read just after it. Then the kernel table, the nvidia-smi
+line and, last, the result line. No path is cut in width; depth is cut as
+named above. Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -689,12 +707,15 @@ def word_triplets_tsv(path: Path, n_rows: int, seed: int) -> list:
     return positives
 
 
-def _device_batch(pipeline):
+def _device_batch(pipeline, batch_size=WORD_BATCH):
+    """The first batch of the pipeline's data on the card, as the step takes
+    it (no negatives for a pair loss)."""
     from twotowers_tpu_torch.data import iterate_batches, place_on_device
 
-    batch = place_on_device(next(iterate_batches(pipeline.dataset.arrays(), WORD_BATCH)),
+    batch = place_on_device(next(iterate_batches(pipeline.dataset.arrays(), batch_size)),
                             "cuda")
-    return batch.queries, batch.positives, batch.negatives, batch.weights
+    negatives = None if pipeline.loss_def.arity == "pair" else batch.negatives
+    return batch.queries, batch.positives, negatives, batch.weights
 
 
 class plain_embedding_kernels:
@@ -714,14 +735,14 @@ class plain_embedding_kernels:
         embeddings.gather_rows, embeddings.scatter_add_rows = self.saved
 
 
-def _step_ms(base, pipeline, config, batch, seed, steps=5):
+def _step_ms(base, loss_def, config, batch, seed, steps=5):
     """Mean ms of one train step on the card (CUDA events), from a copy of
     ``base``, after two warm-up steps."""
     from twotowers_tpu_torch.train import build_optimizer, create_train_state, make_train_step
 
     opt = build_optimizer(config)
     state = create_train_state(copy.deepcopy(base), opt, seed)
-    step = make_train_step(pipeline.loss_def, opt)
+    step = make_train_step(loss_def, opt)
     for _ in range(2):
         step(state, *batch)
     torch.cuda.synchronize()
@@ -732,6 +753,35 @@ def _step_ms(base, pipeline, config, batch, seed, steps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / steps, state, step
+
+
+def kernels_against_plain_step(base, loss_def, config, batch, seed):
+    """One step from the same weights (and the same dropout generator)
+    through the lookup kernels and through their plain versions. The
+    forward is bit-equal, so the losses agree within 1e-6 relative; the
+    table gradient sums f32 in another order (the plain index_add_ by
+    atomics), so it agrees within rtol 1e-3 and 1e-4 of its largest
+    element. Returns (loss kernels, loss plain, max grad err, max grad)."""
+    from twotowers_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    outcome = []
+    for plain in (False, True):
+        opt = build_optimizer(config)
+        ab_state = create_train_state(copy.deepcopy(base), opt, seed)
+        step = make_train_step(loss_def, opt)
+        if plain:
+            with plain_embedding_kernels():
+                _, metrics = step(ab_state, *batch)
+        else:
+            _, metrics = step(ab_state, *batch)
+        torch.cuda.synchronize()
+        outcome.append((float(metrics["loss"]), ab_state.model.embedding.table.grad.clone()))
+    (loss_k, grad_k), (loss_p, grad_p) = outcome
+    scale = float(grad_p.abs().max())
+    if abs(loss_k - loss_p) > 1e-6 * abs(loss_p):
+        raise AssertionError(f"step loss {loss_k} through the kernels, {loss_p} plain")
+    torch.testing.assert_close(grad_k, grad_p, rtol=1e-3, atol=1e-4 * scale)
+    return loss_k, loss_p, float((grad_k - grad_p).abs().max()), scale
 
 
 def device_rows(fn, reps: int) -> list:
@@ -785,8 +835,7 @@ def train_phase(card: dict, seed: int, kernel_ms: dict) -> dict:
     from twotowers_tpu_torch.index.two_tower import TwoTowerSearch
     from twotowers_tpu_torch.kernels import gather, scatter_add
     from twotowers_tpu_torch.train import (
-        build_optimizer, create_train_state, latest_checkpoint, load_checkpoint,
-        load_trained_model, make_train_step, train_model)
+        latest_checkpoint, load_checkpoint, load_trained_model, train_model)
 
     work = ROOT / "build" / "chip_smoke" / "train"
     shutil.rmtree(work, ignore_errors=True)
@@ -844,38 +893,19 @@ def train_phase(card: dict, seed: int, kernel_ms: dict) -> dict:
         if top[0][0] != positives[i] and top[0][1] - top[1][1] > 1e-6:
             raise AssertionError(f"positive {i} not at rank 1: {top[0][1]}")
 
-    # one step from the same weights through the kernels and through the
-    # plain versions: the forward is bit-equal, the table gradient sums f32
-    # in another order (the plain index_add_ by atomics)
     batch = _device_batch(pipeline)
     base = copy.deepcopy(state.model)
-    outcome = []
-    for plain in (False, True):
-        opt = build_optimizer(config)
-        ab_state = create_train_state(copy.deepcopy(base), opt, seed)
-        step = make_train_step(pipeline.loss_def, opt)
-        if plain:
-            with plain_embedding_kernels():
-                _, metrics = step(ab_state, *batch)
-        else:
-            _, metrics = step(ab_state, *batch)
-        torch.cuda.synchronize()
-        outcome.append((float(metrics["loss"]), ab_state.model.embedding.table.grad.clone()))
-    (loss_k, grad_k), (loss_p, grad_p) = outcome
-    scale = float(grad_p.abs().max())
-    grad_err = float((grad_k - grad_p).abs().max())
-    if abs(loss_k - loss_p) > 1e-6 * abs(loss_p):
-        raise AssertionError(f"step loss {loss_k} through the kernels, {loss_p} plain")
-    torch.testing.assert_close(grad_k, grad_p, rtol=1e-3, atol=1e-4 * scale)
+    loss_k, loss_p, grad_err, scale = kernels_against_plain_step(
+        base, pipeline.loss_def, config, batch, seed)
 
     # the step's time, kernels and plain versions in turns
     times = {"kernels": [], "plain": []}
     for plain in (False, True, True, False):
         if plain:
             with plain_embedding_kernels():
-                ms, _, _ = _step_ms(base, pipeline, config, batch, seed)
+                ms, _, _ = _step_ms(base, pipeline.loss_def, config, batch, seed)
         else:
-            ms, prof_state, prof_step = _step_ms(base, pipeline, config, batch, seed)
+            ms, prof_state, prof_step = _step_ms(base, pipeline.loss_def, config, batch, seed)
         times["plain" if plain else "kernels"].append(ms)
     step_ms = statistics.mean(times["kernels"])
     profile = _profile_step(prof_state, prof_step, batch)
@@ -893,6 +923,282 @@ def train_phase(card: dict, seed: int, kernel_ms: dict) -> dict:
     return train
 
 
+# ---- 7. transformer -------------------------------------------------------------
+
+TRANSFORMER_CONFIG = {  # configs/transformer_tower.yml as load_config resolves it
+    "data": "data/processed/classic_triplets.parquet",
+    "checkpoint_dir": "checkpoints",
+    "log_dir": "logs",
+    "precision": "bf16",
+    "wandb": {"project": "two-tower-retrieval", "entity": None},
+    "huggingface": {"push_to_hub": False, "repo_id": "two-tower-tpu", "private": False},
+    "tokeniser": {"type": "bpe", "max_len": 48, "num_merges": 2000},
+    "embedding": {"type": "positional", "embedding_dim": 128, "max_len": 48},
+    "encoder": {"arch": "transformer", "hidden_dim": 128, "tied_weights": True,
+                "num_layers": 2, "num_heads": 4, "max_len": 48, "dropout": 0.1},
+    "loss": {"type": "in_batch", "margin": 0.2, "temperature": 0.1},
+    "optimizer": {"type": "adamw", "lr": 0.001},
+    "batch_size": 256,
+    "learning_rate": 0.001,
+    "epochs": 3,
+    "max_sequence_length": 64,
+    "use_wandb": False,
+}
+TF_ROWS = 16_384 + 100  # synthetic triplets: the last batch of 256 is padded
+TF_EVAL_TUPLES, TF_EVAL_DOCS, TF_SERVE_DOCS = 100, 100, 20_000
+# bench.py's transformer_tower_train shape (_bench_transformer_tower)
+TF_VOCAB, TF_SEQ, TF_BATCH, TF_EMB, TF_HID, TF_LAYERS, TF_HEADS = 8192, 48, 4096, 128, 128, 2, 4
+
+
+def transformer_config(work: Path) -> dict:
+    """The training config of the transformer phase: TRANSFORMER_CONFIG
+    with its paths under ``work`` and its depth cut from 3 epochs to 2."""
+    return {**TRANSFORMER_CONFIG, "data": str(work / "triplets.tsv"),
+            "checkpoint_dir": str(work / "ckpt"), "log_dir": str(work / "logs"), "epochs": 2}
+
+
+def tf_flops(batch: int, seq: int, emb: int, hid: int, layers: int) -> float:
+    """Matmul FLOPs of one transformer-tower train step with the in_batch
+    loss (2 texts a pair), a copy of bench.py's _tf_flops: per text forward
+    the input projection 2*B*L*D*H, per layer QKV+O 8*B*L*H^2, attention
+    4*B*L^2*H and the 4x FFN 16*B*L*H^2; backward ~2x forward; the loss's
+    similarity matmul 2*B^2*H forward, 3x with backward. The lookup is a
+    gather: no matmul FLOPs."""
+    fwd = 2 * batch * seq * emb * hid + layers * (
+        24 * batch * seq * hid * hid + 4 * batch * seq * seq * hid)
+    return 2 * 3.0 * fwd + 3.0 * 2 * batch * batch * hid
+
+
+def eval_tuples(queries: list, positives: list, pool: list, rng) -> list:
+    """(query, documents, relevance) tuples: each query's positive (its
+    text with a quarter of the words redrawn) among TF_EVAL_DOCS - 1 other
+    texts of ``pool``, in a random order."""
+    tuples = []
+    for query, positive in zip(queries, positives):
+        docs = [positive] + [pool[i] for i in rng.choice(len(pool), TF_EVAL_DOCS - 1,
+                                                         replace=False)]
+        order = rng.permutation(len(docs))
+        tuples.append((query, [docs[i] for i in order], [int(i == 0) for i in order]))
+    return tuples
+
+
+def full_width_step(card: dict, seed: int) -> dict:
+    """bench.py's transformer_tower_train step, timed with CUDA events and
+    profiled once."""
+    import torch.nn.functional as F
+
+    from twotowers_tpu_torch.kernels import gather, scatter_add
+    from twotowers_tpu_torch.models import EmbeddingSpec, TowerSpec, TwoTower, TwoTowerSpec
+    from twotowers_tpu_torch.models.losses import build_loss
+
+    dev = torch.device("cuda")
+    spec = TwoTowerSpec(
+        embedding=EmbeddingSpec(kind="lookup", vocab_size=TF_VOCAB, embedding_dim=TF_EMB),
+        tower=TowerSpec(arch="transformer", embedding_dim=TF_EMB, hidden_dim=TF_HID,
+                        dropout=0.0, num_layers=TF_LAYERS, num_heads=TF_HEADS, max_len=TF_SEQ),
+        tied_weights=True, compute_dtype=torch.bfloat16)
+    base = TwoTower(spec, torch.Generator().manual_seed(seed)).to(dev)
+    rng = np.random.default_rng(seed)
+    q, p = (torch.from_numpy(rng.integers(1, TF_VOCAB, size=(TF_BATCH, TF_SEQ))
+                             .astype(np.int32)).to(dev) for _ in range(2))
+    batch = (q, p, None, torch.ones(TF_BATCH, device=dev))
+    config = {"optimizer": {"type": "adamw", "lr": 1e-3}}
+    loss_def = build_loss("in_batch", temperature=0.1)
+
+    gather.LAUNCHES = scatter_add.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = [_step_ms(base, loss_def, config, batch, seed, steps=10) for _ in range(2)]
+    launches = {"gather_rows": gather.LAUNCHES, "scatter_add_rows": scatter_add.LAUNCHES}
+    if not launches["gather_rows"] or not launches["scatter_add_rows"]:
+        raise AssertionError(f"the full-width step launched {launches}")
+    step_ms = statistics.mean(ms for ms, _, _ in runs)
+    _, state, step = runs[-1]
+    _, metrics = step(state, *batch)
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"full-width step loss {float(metrics['loss'])}")
+    rows = device_rows(lambda: step(state, *batch), 3)
+    busy_ms = sum(ms for _, ms, _ in rows)
+    flops = tf_flops(TF_BATCH, TF_SEQ, TF_EMB, TF_HID, TF_LAYERS)
+
+    # a yardstick the port never calls: one block's attention at this shape
+    # (projections included), against scaled_dot_product_attention
+    block = state.model.query_tower.layers[0]
+    x = torch.randn(TF_BATCH, TF_SEQ, TF_HID, device=dev, dtype=torch.bfloat16)
+    no_mask = torch.zeros(TF_BATCH, 1, 1, TF_SEQ, device=dev)
+
+    def dense(t, lin):
+        return F.linear(t, lin.weight.bfloat16(), lin.bias.bfloat16())
+
+    def sdpa():
+        q, k, v = (dense(x, lin).view(TF_BATCH, TF_SEQ, TF_HEADS, -1).transpose(1, 2)
+                   for lin in (block.q, block.k, block.v))
+        out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+        return dense(out.reshape(TF_BATCH, TF_SEQ, TF_HID), block.o)
+
+    with torch.no_grad():
+        attention_ms = cuda_ms(lambda: block.attention(x, no_mask, TF_HEADS))
+        sdpa_ms = cuda_ms(sdpa)
+    return {
+        "shape": {"vocab": TF_VOCAB, "seq": TF_SEQ, "batch": TF_BATCH, "emb": TF_EMB,
+                  "hidden": TF_HID, "layers": TF_LAYERS, "heads": TF_HEADS, "tied": True,
+                  "dtype": "bfloat16", "loss": "in_batch t=0.1", "optimizer": "adamw 1e-3",
+                  "dropout": 0.0},
+        "step_ms": step_ms, "step_ms_runs": [ms for ms, _, _ in runs],
+        "pairs_per_s": TF_BATCH / step_ms * 1e3,
+        "model_flops_per_step": flops,
+        "model_flop_share": flops / (step_ms / 1e3) / H100_FLOPS[torch.bfloat16],
+        "peak_flops": H100_FLOPS[torch.bfloat16], "peak": "H100 SXM dense bf16 989 TFLOP/s",
+        "device_busy_ms_per_step": busy_ms, "busy_share": busy_ms / step_ms,
+        "launches_per_step": sum(n for _, _, n in rows),
+        "lookup_kernel_launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "attention_ms": attention_ms, "sdpa_ms": sdpa_ms,
+        "top": [[name[:70], ms, n] for name, ms, n in rows[:16]],
+        "card": card["nvidia_smi"],
+    }
+
+
+def towers_against_cpu(seed: int) -> dict:
+    """cnn, rnn and transformer in f32 on the card and on the CPU from the
+    same converted weights; rtol 1e-5, atol 1e-5 (the tests' f32 tolerance
+    against JAX). TF32 is off (main), so cuDNN and cuBLAS sum in IEEE f32."""
+    from twotowers_tpu_torch.convert import params_from_jax, params_to_jax
+    from twotowers_tpu_torch.models import EmbeddingSpec, TowerSpec, TwoTower, TwoTowerSpec
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, 600, size=(8, TF_SEQ)).astype(np.int32)
+    for row, length in enumerate(rng.integers(1, TF_SEQ, size=8)):
+        ids[row, length:] = 0
+    ids[1] = 0  # a row with no real token
+    errs = {}
+    for arch in ("cnn", "rnn", "transformer"):
+        spec = TwoTowerSpec(
+            embedding=EmbeddingSpec(kind="positional", vocab_size=600, embedding_dim=TF_EMB,
+                                    max_len=TF_SEQ),
+            tower=TowerSpec(arch=arch, embedding_dim=TF_EMB, hidden_dim=TF_HID, kernel_size=4,
+                            num_layers=TF_LAYERS, num_heads=TF_HEADS, max_len=TF_SEQ))
+        cpu_model = TwoTower(spec, torch.Generator().manual_seed(seed)).eval()
+        card_model = params_from_jax(params_to_jax(cpu_model), spec).cuda().eval()
+        with torch.no_grad():
+            want = cpu_model.encode(torch.from_numpy(ids), "query")
+            got = card_model.encode(torch.from_numpy(ids).cuda(), "query").cpu()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        errs[arch] = float((got - want).abs().max())
+    return errs
+
+
+def transformer_phase(card: dict, seed: int) -> dict:
+    from twotowers_tpu_torch.evaluation import evaluate_model
+    from twotowers_tpu_torch.kernels import gather, scatter_add, topk
+    from twotowers_tpu_torch.models import TwoTower
+    from twotowers_tpu_torch.serve.app import ModelRuntime
+    from twotowers_tpu_torch.serve.service import RetrievalService
+    from twotowers_tpu_torch.train import latest_checkpoint, load_trained_model, train_model
+
+    work = ROOT / "build" / "chip_smoke" / "transformer"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    config = transformer_config(work)
+    emit("transformer", step="config", source="configs/transformer_tower.yml",
+         changed={k: config[k] for k in ("data", "checkpoint_dir", "log_dir", "epochs")},
+         tokeniser=config["tokeniser"], embedding=config["embedding"],
+         encoder=config["encoder"], loss=config["loss"], precision=config["precision"],
+         batch_size=config["batch_size"])
+
+    # 2. train
+    start = time.perf_counter()
+    positives = word_triplets_tsv(work / "triplets.tsv", TF_ROWS + TF_EVAL_TUPLES, seed)
+    with open(work / "triplets.tsv") as f:
+        rows = [line.rstrip("\n").split("\t") for line in f][1:]
+    held_out = rows[TF_ROWS:]  # the last 100 rows are not trained on
+    with open(work / "triplets.tsv", "w") as f:
+        f.write("query\tpositive_doc\tnegative_doc\n")
+        f.writelines("\t".join(row) + "\n" for row in rows[:TF_ROWS])
+    data_s = time.perf_counter() - start
+    gather.LAUNCHES = scatter_add.LAUNCHES = 0  # the main path starts here
+    start = time.perf_counter()
+    state, pipeline = train_model(config, seed=seed)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    launches = {"gather_rows": gather.LAUNCHES, "scatter_add_rows": scatter_add.LAUNCHES}
+    vocab, merges = pipeline.dataset.vocab_size, len(pipeline.tokenizer.merges)
+    steps = 2 * math.ceil(TF_ROWS / config["batch_size"])
+    with open(next((work / "logs").glob("*_metrics.jsonl"))) as f:
+        records = [json.loads(line) for line in f]
+    epoch_loss = [r["train/epoch_loss"] for r in records if "train/epoch_loss" in r]
+    best = work / "ckpt" / "best_model"
+    if vocab <= 512 or merges == 0 or state.step != steps:
+        raise AssertionError(f"vocab {vocab}, {merges} merges, {state.step} steps")
+    if len(epoch_loss) != 2 or not epoch_loss[1] < epoch_loss[0]:
+        raise AssertionError(f"epoch losses {epoch_loss}: epoch 2 must be below epoch 1")
+    if launches["scatter_add_rows"] != 2 * steps or launches["gather_rows"] < 2 * steps:
+        raise AssertionError(f"launches {launches} for {steps} steps")
+    if not (best / "params.npz").exists() or not latest_checkpoint(str(work / "ckpt")):
+        raise AssertionError("best_model / checkpoint missing")
+    emit("transformer", step="train", rows=TF_ROWS, vocab=vocab, merges=merges, steps=steps,
+         epoch_loss=epoch_loss, launches=launches, data_s=data_s, train_model_s=train_s)
+
+    # 3. one step through the kernels and through the plain versions
+    batch = _device_batch(pipeline, config["batch_size"])
+    loss_k, loss_p, grad_err, grad_max = kernels_against_plain_step(
+        copy.deepcopy(state.model), pipeline.loss_def, config, batch, seed)
+    emit("transformer", step="kernels against plain", ab_loss=[loss_k, loss_p],
+         ab_table_grad_max_abs_err=grad_err, ab_table_grad_max=grad_max)
+
+    # 4. evaluate the trained weights and the initial ones on held-out tuples
+    rng = np.random.default_rng(seed + 3)
+    tuples = eval_tuples([r[0] for r in held_out], [r[1] for r in held_out],
+                         [r[2] for r in rows[:TF_ROWS]], rng)
+    kw = dict(batch_size=32, max_length=config["tokeniser"]["max_len"])
+    trained = evaluate_model(state.model, pipeline.spec, tuples, pipeline.tokenizer, **kw)
+    initial = TwoTower(pipeline.spec, torch.Generator().manual_seed(seed)).cuda()
+    untrained = evaluate_model(initial, pipeline.spec, tuples, pipeline.tokenizer, **kw)
+    if not all(math.isfinite(v) for v in trained.values()) or \
+            not trained["mrr"] > untrained["mrr"]:
+        raise AssertionError(f"trained MRR {trained['mrr']}, initial {untrained['mrr']}")
+    emit("transformer", step="evaluate", tuples=len(tuples), docs_per_tuple=TF_EVAL_DOCS,
+         trained=trained, initial=untrained)
+
+    # 5. serve best_model (epoch 2's weights, the trained model's): it
+    # reloads to the same encodings, and every indexed text comes back
+    # first for itself
+    texts = list(dict.fromkeys(positives[:TF_ROWS] + [r[2] for r in rows[:TF_ROWS]]))
+    texts = texts[:TF_SERVE_DOCS]
+    loaded, spec, tokenizer, _ = load_trained_model(str(best))
+    ids = torch.from_numpy(tokenizer(texts[:256], config["tokeniser"]["max_len"])).cuda()
+    with torch.no_grad():
+        if spec != pipeline.spec or not torch.equal(loaded.encode(ids),
+                                                    state.model.eval().encode(ids)):
+            raise AssertionError("best_model does not reload to the trained model")
+    topk.LAUNCHES = 0  # the serving part of the path starts here
+    service = RetrievalService(model=ModelRuntime(str(best)))
+    start = time.perf_counter()
+    out = service.add(texts, ids=[f"t{i}" for i in range(len(texts))])
+    add_s = time.perf_counter() - start
+    search_ms = []
+    for i in rng.choice(len(texts), size=8, replace=False):
+        start = time.perf_counter()
+        result = service.search(texts[i], top_k=5)["results"]
+        search_ms.append((time.perf_counter() - start) * 1e3)
+        dists = [r["distance"] for r in result]
+        top = [r["document"] for r in result if r["distance"] <= dists[0] + 1e-6]
+        if out["total"] != len(texts) or texts[i] not in top:
+            raise AssertionError(f"indexed text {i} not at rank 1: {result[:2]}")
+    launches["score_topk"] = topk.LAUNCHES  # the main path ends here
+    if launches["score_topk"] < 8:
+        raise AssertionError(f"{launches['score_topk']} score_topk launches for 8 searches")
+    emit("transformer", step="serve", docs=len(texts), add_docs_per_s=len(texts) / add_s,
+         search_ms=search_ms, score_topk_launches=launches["score_topk"])
+
+    # 6. bench.py's full-width step; 7. the towers on the card against the CPU
+    full = full_width_step(card, seed)
+    emit("transformer", step="full-width step", **full)
+    towers = towers_against_cpu(seed)
+    emit("transformer", step="towers on the card against the CPU", max_abs_err=towers,
+         tolerance="rtol 1e-5, atol 1e-5, f32, TF32 off")
+    return {"launches": launches, "step_ms": full["step_ms"], "vocab": vocab}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -907,12 +1213,15 @@ def main() -> int:
     serve = serve_phase(card, args.n_docs, args.seed)
     embed_rows = embed_kernels_phase(card, args.seed)
     train = train_phase(card, args.seed, embed_rows)
+    transformer = transformer_phase(card, args.seed)
+    tf_launches = transformer["launches"]
     embed_shape = {"n": MAIN_ROWS, "d": WORD_EMB, "v": WORD_VOCAB}
     print(json.dumps({"kernels": [{
         "name": "score_topk", "route": "cuda",
         "source": "twotowers_tpu_torch/csrc/score_topk.cu",
         "replaces": "twotowers_tpu/kernels/pallas_topk.py:52",
         "launches": serve["score_topk_launches"],
+        "launches_transformer": tf_launches["score_topk"],
         "max_abs_err": topk_row["max_abs_err"],
         "tolerance": "scores rtol 1e-5 atol 1e-6; indices equal but for near-ties "
                      "(f64 rescores within 1e-5 relative); integer case bit-equal",
@@ -929,6 +1238,7 @@ def main() -> int:
         "source": "twotowers_tpu_torch/csrc/scatter_add_rows.cu",
         "replaces": "twotowers_tpu/kernels/pallas_scatter_add.py:82",
         "launches": train["launches"]["scatter_add_rows"],
+        "launches_transformer": tf_launches["scatter_add_rows"],
         "max_abs_err": embed_rows["scatter_add_rows"]["max_abs_err"],
         "tolerance": "|kernel - plain| <= 1e-5 * sum|g| of the row + 1e-6 (f32 sums in "
                      "another order); integer-valued g bit-equal",
@@ -943,6 +1253,7 @@ def main() -> int:
         "source": "twotowers_tpu_torch/csrc/gather_rows.cu",
         "replaces": "tools/exp_pallas_embed.py:81",
         "launches": train["launches"]["gather_rows"],
+        "launches_transformer": tf_launches["gather_rows"],
         "max_abs_err": embed_rows["gather_rows"]["max_abs_err"],
         "tolerance": "bit-equal",
         **{k: embed_rows["gather_rows"][k] for k in (

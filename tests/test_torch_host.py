@@ -146,12 +146,6 @@ def test_word_state_dict_round_trip(np_rng):
     np.testing.assert_array_equal(again(["apple fig"], 6), jax_tok(["apple fig"], 6))
 
 
-@pytest.mark.parametrize("kind", ["bpe", "wordpiece"])
-def test_unported_tokenizer_names_roadmap_item(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        tokenizer_from_state({"type": kind})
-
-
 @pytest.mark.parametrize("cls", [Registry, JaxRegistry])
 def test_registry_copy_behaves_alike(cls):
     reg = cls("thing")

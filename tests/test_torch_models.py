@@ -24,11 +24,15 @@ from twotowers_tpu.models import (
     EmbeddingSpec as JaxEmbeddingSpec, TowerSpec as JaxTowerSpec,
     TwoTowerSpec as JaxTwoTowerSpec, embed_ids, init_two_tower)
 from twotowers_tpu.models.towers import encode as jax_encode
+from twotowers_tpu.models.embeddings import (
+    spec_from_config as jax_embedding_spec_from_config)
 from twotowers_tpu.models.towers import spec_from_config as jax_spec_from_config
 from twotowers_tpu.ops import core as jax_core
 from twotowers_tpu_torch.convert import params_from_jax, params_to_jax
 from twotowers_tpu_torch.models import (
     Embedding, EmbeddingSpec, TowerSpec, TwoTower, TwoTowerSpec, spec_from_config)
+from twotowers_tpu_torch.models.embeddings import (
+    spec_from_config as embedding_spec_from_config)
 from twotowers_tpu_torch.ops import core
 
 DEFAULT_CONFIG = {  # configs/default_config.yml, the sections the model reads
@@ -103,7 +107,40 @@ class TestEmbedding:
                                       np.asarray(want.astype(jnp.float32)))
         assert np.all(got.float().numpy()[ids == 0] == 0)  # the padding row
 
-    @pytest.mark.parametrize("kind", ["positional", "word2vec", "glove"])
+    @pytest.mark.parametrize("vocab", [40, 600])
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_positional_lookup_is_bit_exact(self, np_rng, vocab, bf16):
+        """Table rows plus ``pos[:L]`` on the real tokens only; pad rows stay
+        exactly zero."""
+        table = np_rng.normal(size=(vocab, 16)).astype(np.float32)
+        table[0] = 0.0
+        pos = (0.02 * np_rng.normal(size=(20, 16))).astype(np.float32)
+        ids = _ids(np_rng, vocab)
+        jax_spec = JaxEmbeddingSpec(kind="positional", vocab_size=vocab, embedding_dim=16,
+                                    max_len=20)
+        want = embed_ids({"table": jnp.asarray(table), "pos": jnp.asarray(pos)}, jax_spec,
+                         jnp.asarray(ids), dtype=jnp.bfloat16 if bf16 else jnp.float32)
+        spec = EmbeddingSpec(kind="positional", vocab_size=vocab, embedding_dim=16, max_len=20)
+        module = Embedding(spec)
+        assert module.pos.shape == (20, 16) and module.pos.requires_grad
+        with torch.no_grad():
+            module.table.copy_(torch.from_numpy(table))
+            module.pos.copy_(torch.from_numpy(pos))
+            got = module(torch.from_numpy(ids), torch.bfloat16 if bf16 else torch.float32)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+        assert np.all(got.float().numpy()[ids == 0] == 0)
+
+    def test_positional_defaults_follow_the_config(self):
+        got = embedding_spec_from_config({"type": "positional", "embedding_dim": 8}, 30)
+        want = jax_embedding_spec_from_config({"type": "positional", "embedding_dim": 8}, 30)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.trainable and got.max_len == 128
+        frozen = Embedding(embedding_spec_from_config(
+            {"type": "positional", "embedding_dim": 8, "trainable": False}, 30))
+        assert not frozen.table.requires_grad and not frozen.pos.requires_grad
+
+    @pytest.mark.parametrize("kind", ["word2vec", "glove"])
     def test_unported_kind_names_roadmap_item(self, kind):
         with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
             Embedding(EmbeddingSpec(kind=kind, vocab_size=10, embedding_dim=4))
@@ -176,7 +213,20 @@ class TestTowers:
                 assert p.abs().max().item() <= bound
 
     @pytest.mark.parametrize("arch", ["cnn", "rnn", "transformer"])
-    def test_sequence_towers_name_roadmap_item(self, arch):
-        _, spec = _specs(arch, 16, 16, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
-            TwoTower(spec)
+    def test_sequence_tower_spec_from_config_matches_jax(self, arch):
+        """The sequence towers build from a config, with JAX's spec and its
+        parameter count."""
+        config = {"embedding": {"type": "positional", "embedding_dim": 16, "max_len": 24},
+                  "encoder": {"arch": arch, "hidden_dim": 32, "num_layers": 2, "num_heads": 4,
+                              "max_len": 24, "kernel_size": 4, "dropout": 0.0,
+                              "tied_weights": True},
+                  "precision": "bf16"}
+        want = jax_spec_from_config(config, vocab_size=57)
+        got = spec_from_config(config, vocab_size=57)
+        assert dataclasses.asdict(got.embedding) == dataclasses.asdict(want.embedding)
+        assert dataclasses.asdict(got.tower) == dataclasses.asdict(want.tower)
+        assert got.output_dim == want.output_dim == 32 and got.compute_dtype == torch.bfloat16
+        model = TwoTower(got)
+        n_jax = sum(int(np.size(x)) for x in jax.tree_util.tree_leaves(
+            init_two_tower(jax.random.PRNGKey(0), want)))
+        assert sum(p.numel() for p in model.parameters()) == n_jax

@@ -1,16 +1,25 @@
 """Weights and optimizer state carried between the JAX package's pytrees and
 a TwoTower with its torch optimizer.
 
-The JAX param tree, as nested dicts of numpy arrays::
+The JAX param tree, as nested dicts (and, for the transformer's
+``layers``, a list of dicts) of numpy arrays::
 
-    {'embedding': {'table'},
+    {'embedding': {'table'[, 'pos']},                    # lookup[, positional]
      'query_tower': {'w1', 'b1', 'w2', 'b2'}            # mean
                  or {'proj_w', 'proj_b', 'ln_scale', 'ln_bias'}  # avg_pool
                  or {}                                   # avg_pool, hidden == emb
+                 or {'conv1_w', 'conv1_b', 'conv2_w', 'conv2_b',
+                     'proj_w', 'proj_b'}                 # cnn
+                 or {'w_x', 'w_h', 'b'}                  # rnn
+                 or {'proj_w', 'proj_b', 'pos', 'final_ln_scale',
+                     'final_ln_bias', 'layers': [{'ln1_scale', 'ln1_bias',
+                     'q_w', 'q_b', 'k_w', ..., 'ffn2_b'}, ...]}  # transformer
      ['document_tower': same keys, absent when tied]}
 
 JAX linears are ``(in, out)`` and applied as ``x @ w``; ``nn.Linear.weight``
-is ``(out, in)``, so every linear weight is transposed on the way.
+is ``(out, in)``. JAX convolutions are ``WIO (K, C_in, C_out)``;
+``nn.Conv1d.weight`` is ``(C_out, C_in, K)``. Both are the reverse of all
+axes, so every such weight is transposed (``.T``) on the way.
 
 The optimizer state is optax's, with the moments under the param paths:
 ``{'count', 'mu': tree, 'nu': tree}`` (``ScaleByAdamState``, adam and adamw)
@@ -20,12 +29,14 @@ is in optax's state with zero moments and in no torch optimizer.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .models.towers import TwoTower, TwoTowerSpec
+
+Path = Tuple[Union[str, int], ...]
 
 # torch parameter name -> (JAX leaf name, transposed)
 _TOWER_LEAVES = {
@@ -33,6 +44,22 @@ _TOWER_LEAVES = {
              "fc2.weight": ("w2", True), "fc2.bias": ("b2", False)},
     "avg_pool": {"proj.weight": ("proj_w", True), "proj.bias": ("proj_b", False),
                  "norm.weight": ("ln_scale", False), "norm.bias": ("ln_bias", False)},
+    "cnn": {"conv1.weight": ("conv1_w", True), "conv1.bias": ("conv1_b", False),
+            "conv2.weight": ("conv2_w", True), "conv2.bias": ("conv2_b", False),
+            "proj.weight": ("proj_w", True), "proj.bias": ("proj_b", False)},
+    "rnn": {"x_proj.weight": ("w_x", True), "x_proj.bias": ("b", False),
+            "h_proj.weight": ("w_h", True)},
+    "transformer": {"proj.weight": ("proj_w", True), "proj.bias": ("proj_b", False),
+                    "pos": ("pos", False), "final_ln.weight": ("final_ln_scale", False),
+                    "final_ln.bias": ("final_ln_bias", False)},
+}
+# a transformer block's parameters, under ``layers.<i>.`` in torch and
+# ``['layers'][i]`` in JAX
+_BLOCK_LEAVES = {
+    **{f"{m}.weight": (f"{m}_w", True) for m in ("q", "k", "v", "o", "ffn1", "ffn2")},
+    **{f"{m}.bias": (f"{m}_b", False) for m in ("q", "k", "v", "o", "ffn1", "ffn2")},
+    **{f"{m}.weight": (f"{m}_scale", False) for m in ("ln1", "ln2")},
+    **{f"{m}.bias": (f"{m}_bias", False) for m in ("ln1", "ln2")},
 }
 
 
@@ -42,14 +69,53 @@ def _towers(model: TwoTower):
         yield "document_tower", model.document_tower
 
 
-def _leaves(model: TwoTower) -> Iterator[Tuple[str, str, torch.nn.Parameter, bool]]:
-    """(JAX subtree, JAX leaf, parameter, transposed) for every parameter."""
-    yield "embedding", "table", model.embedding.table, False
-    leaves = _TOWER_LEAVES[model.spec.tower.arch]
+def _tower_leaf(arch: str, torch_name: str) -> Tuple[Path, bool]:
+    if arch == "transformer" and torch_name.startswith("layers."):
+        _, index, rest = torch_name.split(".", 2)
+        leaf, transposed = _BLOCK_LEAVES[rest]
+        return ("layers", int(index), leaf), transposed
+    leaf, transposed = _TOWER_LEAVES[arch][torch_name]
+    return (leaf,), transposed
+
+
+def _leaves(model: TwoTower) -> Iterator[Tuple[Path, torch.nn.Parameter, bool]]:
+    """(path in the JAX tree, parameter, transposed) for every parameter."""
+    yield ("embedding", "table"), model.embedding.table, False
+    if model.embedding.pos is not None:
+        yield ("embedding", "pos"), model.embedding.pos, False
     for name, tower in _towers(model):
         for torch_name, param in tower.named_parameters():
-            jax_name, transposed = leaves[torch_name]
-            yield name, jax_name, param, transposed
+            path, transposed = _tower_leaf(model.spec.tower.arch, torch_name)
+            yield (name, *path), param, transposed
+
+
+def _get(tree: Any, path: Path) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _lists(node: Any) -> Any:
+    """Turn every dict keyed 0..n-1 into a list."""
+    if not isinstance(node, dict):
+        return node
+    node = {key: _lists(value) for key, value in node.items()}
+    if node and all(isinstance(key, int) for key in node):
+        return [node[i] for i in range(len(node))]
+    return node
+
+
+def nest(leaves: Iterable[Tuple[Path, Any]], tree: Optional[Dict[str, Any]] = None
+         ) -> Dict[str, Any]:
+    """A tree of nested dicts from ``(path, value)`` pairs, added to
+    ``tree``; the int keys of a path index lists."""
+    tree = {} if tree is None else tree
+    for path, value in leaves:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return _lists(tree)
 
 
 def _to_torch(value: Any, transposed: bool) -> torch.Tensor:
@@ -64,9 +130,8 @@ def _to_jax(value: torch.Tensor, transposed: bool) -> np.ndarray:
 
 def _tree(model: TwoTower, value_of) -> Dict[str, Any]:
     tree: Dict[str, Any] = {"embedding": {}, **{name: {} for name, _ in _towers(model)}}
-    for sub, leaf, param, transposed in _leaves(model):
-        tree[sub][leaf] = value_of(param, transposed)
-    return tree
+    return nest(((path, value_of(param, transposed))
+                 for path, param, transposed in _leaves(model)), tree)
 
 
 @torch.no_grad()
@@ -74,10 +139,11 @@ def load_params(model: TwoTower, tree: Dict[str, Any]) -> TwoTower:
     """Copy the JAX tree's weights into ``model`` in place (its parameters,
     and so an optimizer holding them, stay the same objects). Keys or
     shapes that do not match raise."""
-    for sub, leaf, param, transposed in _leaves(model):
-        value = _to_torch(tree[sub][leaf], transposed)
+    for path, param, transposed in _leaves(model):
+        value = _to_torch(_get(tree, path), transposed)
         if value.shape != param.shape:
-            raise ValueError(f"{sub}/{leaf}: shape {tuple(value.shape)} != {tuple(param.shape)}")
+            raise ValueError(f"{'/'.join(map(str, path))}: shape {tuple(value.shape)} "
+                             f"!= {tuple(param.shape)}")
         param.copy_(value)
     return model
 
@@ -124,10 +190,10 @@ def opt_state_from_jax(tree: Dict[str, Any], model: TwoTower,
     ``optimizer``, bound to ``model``'s parameters. Entries of parameters
     the optimizer does not hold (a frozen table) are skipped."""
     held = {id(p) for group in optimizer.param_groups for p in group["params"]}
-    for sub, leaf, param, transposed in _leaves(model):
+    for path, param, transposed in _leaves(model):
         if id(param) not in held:
             continue
-        as_param = lambda key: _to_torch(tree[key][sub][leaf], transposed).to(param.device)  # noqa: E731
+        as_param = lambda key: _to_torch(_get(tree[key], path), transposed).to(param.device)  # noqa: E731
         if _is_sgd(optimizer):
             optimizer.state[param] = {"momentum_buffer": as_param("trace")}
         else:

@@ -1,13 +1,15 @@
 """Embedding stage: token ids -> dense vectors.
 
 The counterpart of ``twotowers_tpu/models/embeddings.py`` for the ``lookup``
-kind: an f32 ``(vocab_size, dim)`` table, N(0, 1) with a zero padding row.
-At a word-scale vocabulary (above ``_ONE_HOT_MAX_VOCAB``) the lookup is
-``GatherScatterGrad``, the counterpart of the JAX package's
+and ``positional`` kinds: an f32 ``(vocab_size, dim)`` table, N(0, 1) with a
+zero padding row, and for ``positional`` a learned ``(max_len, dim)`` table
+``pos``, 0.02 N(0, 1), whose first ``seq_len`` rows are added to the
+non-pad tokens. At a word-scale vocabulary (above ``_ONE_HOT_MAX_VOCAB``)
+the lookup is ``GatherScatterGrad``, the counterpart of the JAX package's
 ``_take_scatter_grad``: the gather kernel forward, the scatter-add kernel
-backward. A frozen table (``trainable: false``) gets no gradient and is
-kept out of the optimizer. The other kinds (``positional`` and the
-pretrained sources) are not ported yet (ROADMAP.md §1 item 4).
+backward. A frozen embedding (``trainable: false``) gets no gradient and is
+kept out of the optimizer. The pretrained kinds are not ported yet
+(ROADMAP.md §1 item 4).
 """
 
 from __future__ import annotations
@@ -94,11 +96,12 @@ class GatherScatterGrad(torch.autograd.Function):
 
 
 class Embedding(nn.Module):
-    """Lookup table with a zero padding row."""
+    """Lookup table with a zero padding row, plus learned positions for the
+    ``positional`` kind."""
 
     def __init__(self, spec: EmbeddingSpec):
         super().__init__()
-        if spec.kind != "lookup":
+        if spec.kind not in ("lookup", "positional"):
             raise NotImplementedError(
                 f"embedding type {spec.kind!r} is not ported yet (ROADMAP.md §1 item 4)"
             )
@@ -107,15 +110,33 @@ class Embedding(nn.Module):
             torch.empty(spec.vocab_size, spec.embedding_dim),
             requires_grad=spec.trainable,
         )
+        self.pos: Optional[nn.Parameter] = None
+        if spec.kind == "positional":
+            self.pos = nn.Parameter(torch.empty(spec.max_len, spec.embedding_dim),
+                                    requires_grad=spec.trainable)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """N(0, 1) init with a zero padding row (nn.Embedding's default)."""
+        """N(0, 1) init with a zero padding row (nn.Embedding's default);
+        positions 0.02 N(0, 1)."""
         self.table.normal_(generator=generator)
         self.table[self.spec.padding_idx] = 0.0
+        if self.pos is not None:
+            self.pos.normal_(generator=generator).mul_(0.02)
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """(..., seq_len) ids -> (..., seq_len, dim) vectors in ``dtype``."""
         if self.spec.vocab_size <= _ONE_HOT_MAX_VOCAB:
-            return F.embedding(ids, self.table).to(dtype)
-        return GatherScatterGrad.apply(self.table, ids, dtype)
+            out = F.embedding(ids, self.table).to(dtype)
+        else:
+            out = GatherScatterGrad.apply(self.table, ids, dtype)
+        if self.pos is not None:
+            seq_len = ids.shape[-1]
+            if seq_len > self.pos.shape[0]:
+                raise ValueError(
+                    f"sequence length {seq_len} exceeds positional table "
+                    f"max_len {self.pos.shape[0]}"
+                )
+            # pad rows stay exactly zero so masked pooling ignores them
+            out = out + torch.where((ids > 0).unsqueeze(-1), self.pos[:seq_len].to(dtype), 0.0)
+        return out

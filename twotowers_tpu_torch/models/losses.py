@@ -7,12 +7,20 @@ per-sample ``weights`` (1 real / 0 pad) and takes a weighted mean, so the
 padded last batch of an epoch gives the mean over its real rows; pad rows
 are also masked out of the in-batch negative pool. Each returns
 ``(loss, {"pos_similarity", "neg_similarity"})``.
+
+One deviation in ``build_loss``: a setting that only another registered
+loss takes is dropped rather than bound. A config that extends
+``default_config.yml`` (triplet, ``margin``) with ``type: in_batch``, as
+``configs/transformer_tower.yml`` does, carries the base's ``margin``; the
+JAX package binds it and its step raises ``TypeError``. A setting that no
+loss takes still raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -139,9 +147,21 @@ LOSS_REGISTRY.add("cosine", LossDef(cosine_embedding_loss, "triplet"))
 LOSS_REGISTRY.add("contrastive", LossDef(contrastive_triplet_loss, "triplet"))
 
 
+def _settings(fn: Callable) -> set:
+    """The keyword settings a loss takes after its tensors."""
+    return {p.name for p in inspect.signature(fn).parameters.values()
+            if p.default is not inspect.Parameter.empty and p.name != "weights"}
+
+
 def build_loss(name: str, **kwargs: Any) -> LossDef:
-    """Look up a loss and bind config kwargs (margin/temperature/...)."""
+    """Look up a loss and bind config kwargs (margin/temperature/...).
+    Settings of other losses only are dropped; unknown settings raise."""
     base = LOSS_REGISTRY.get(name)
+    known = set().union(*(_settings(LOSS_REGISTRY.get(n).fn) for n in LOSS_REGISTRY.names()))
+    unknown = set(kwargs) - known
+    if unknown:
+        raise TypeError(f"loss {name!r} got unknown settings {sorted(unknown)}")
+    kwargs = {k: v for k, v in kwargs.items() if k in _settings(base.fn)}
     if kwargs:
         return LossDef(functools.partial(base.fn, **kwargs), base.arity)
     return base

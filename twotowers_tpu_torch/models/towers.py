@@ -1,17 +1,18 @@
 """Encoder towers: token embeddings -> one L2-normalised vector per text.
 
-The counterpart of ``twotowers_tpu/models/towers.py`` for the pooled towers
-``mean`` and ``avg_pool`` as ``nn.Module``s. One embedding table is shared
-by both towers; with tied weights the document tower is the query tower.
-Parameters stay f32; with ``precision: bf16`` the lookup and the pooling
-run in bf16 and the towers widen the pooled vector to f32, which is what
-JAX's type promotion of ``bf16 @ f32`` does in the reference.
+The counterpart of ``twotowers_tpu/models/towers.py`` as ``nn.Module``s:
+the pooled towers ``mean`` and ``avg_pool`` here, the sequence towers
+``cnn``, ``rnn`` and ``transformer`` in ``seq_towers.py``. One embedding is
+shared by both towers; with tied weights the document tower is the query
+tower. Parameters stay f32; with ``precision: bf16`` the lookup, the
+pooling and the sequence towers' layers run in bf16, and the pooled towers
+widen the pooled vector to f32, which is what JAX's type promotion of
+``bf16 @ f32`` does in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -20,10 +21,10 @@ from torch import nn
 from ..ops.core import l2_normalize, masked_mean_pool
 from ..utils.registry import Registry
 from .embeddings import Embedding, EmbeddingSpec
+from .seq_towers import (
+    CNNTower, RNNTower, TransformerTower, _init_linear, _linear, is_sequence_arch)
 
 TOWER_REGISTRY = Registry("tower")
-
-_SEQUENCE_ARCHS = ("cnn", "rnn", "transformer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +32,7 @@ class TowerSpec:
     """Static configuration of one tower architecture.
 
     kernel_size / num_layers / num_heads / max_len only apply to the
-    sequence towers (cnn / rnn / transformer).
+    sequence towers (cnn / rnn / transformer, see seq_towers.py).
     """
 
     arch: str
@@ -58,20 +59,6 @@ class TwoTowerSpec:
         if self.tower.arch == "avg_pool" and self.tower.hidden_dim == self.embedding.embedding_dim:
             return self.embedding.embedding_dim
         return self.tower.hidden_dim
-
-
-def _linear(fan_in: int, fan_out: int) -> nn.Linear:
-    # skip_init: the weights are drawn from the model's generator, never
-    # from the global RNG
-    return nn.utils.skip_init(nn.Linear, fan_in, fan_out)
-
-
-@torch.no_grad()
-def _init_linear(linear: nn.Linear, generator: torch.Generator) -> None:
-    """nn.Linear's default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
-    bound = 1.0 / math.sqrt(linear.in_features)
-    linear.weight.uniform_(-bound, bound, generator=generator)
-    linear.bias.uniform_(-bound, bound, generator=generator)
 
 
 @TOWER_REGISTRY.register("mean")
@@ -127,12 +114,9 @@ class AvgPoolTower(nn.Module):
         return l2_normalize(out)
 
 
-def _tower_class(arch: str):
-    if arch in _SEQUENCE_ARCHS:
-        raise NotImplementedError(
-            f"tower arch {arch!r} is not ported yet (ROADMAP.md §1 item 9)"
-        )
-    return TOWER_REGISTRY.get(arch)
+TOWER_REGISTRY.add("cnn", CNNTower)
+TOWER_REGISTRY.add("rnn", RNNTower)
+TOWER_REGISTRY.add("transformer", TransformerTower)
 
 
 def spec_from_config(config: Dict[str, Any], vocab_size: int) -> TwoTowerSpec:
@@ -170,7 +154,7 @@ class TwoTower(nn.Module):
     def __init__(self, spec: TwoTowerSpec, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.spec = spec
-        tower_cls = _tower_class(spec.tower.arch)
+        tower_cls = TOWER_REGISTRY.get(spec.tower.arch)
         self.embedding = Embedding(spec.embedding)
         self.query_tower = tower_cls(spec.tower)
         self.document_tower = None if spec.tied_weights else tower_cls(spec.tower)
@@ -186,12 +170,15 @@ class TwoTower(nn.Module):
     def encode(self, ids: torch.Tensor, tower: str = "query",
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(batch, seq_len) ids, PAD=0 -> (batch, output_dim) f32 unit vectors.
-        ``generator`` draws the dropout mask of a tower in training mode."""
+        ``generator`` draws the dropout masks of a tower in training mode.
+        A sequence tower takes the (batch, seq_len, dim) embeddings and the
+        ids; a pooled tower takes their masked mean."""
+        net = self.query_tower if tower == "query" or self.document_tower is None \
+            else self.document_tower
         embedded = self.embedding(ids, self.spec.compute_dtype)
-        pooled = masked_mean_pool(embedded, ids)
-        if tower == "query" or self.document_tower is None:
-            return self.query_tower(pooled, generator)
-        return self.document_tower(pooled, generator)
+        if is_sequence_arch(self.spec.tower.arch):
+            return net(embedded, ids, generator)
+        return net(masked_mean_pool(embedded, ids), generator)
 
     def forward(self, query_ids: torch.Tensor,
                 document_ids: Optional[torch.Tensor] = None,

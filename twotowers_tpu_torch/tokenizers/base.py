@@ -97,6 +97,6 @@ class BaseTokenizer(ABC):
 
 
 def build_tokenizer(name: str, **kwargs: Any) -> BaseTokenizer:
-    """Build a tokenizer by registry name (``char`` or ``word`` in this
-    package so far)."""
+    """Build a tokenizer by registry name
+    (``char`` / ``word`` / ``bpe`` / ``wordpiece``)."""
     return TOKENIZER_REGISTRY.build(name, **kwargs)

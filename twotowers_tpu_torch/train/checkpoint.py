@@ -8,7 +8,9 @@ writes ``<dir>/two_tower_<timestamp>_epoch<N>/`` and mirrors it to
 config). The array stores are ``params.npz`` and ``opt_state.npz``: the JAX
 param pytree's leaves and optax's optimizer state (``count``, ``mu/...``,
 ``nu/...``; see ``convert.py``) under their ``/``-joined paths, in the JAX
-layout, in place of the JAX package's orbax directory.
+layout, in place of the JAX package's orbax directory. A list in the tree
+(the transformer's ``layers``) is stored item by item under its index
+(``query_tower/layers/0/q_w``) and read back as a list.
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ META_FILE = "meta.json"
 BEST_NAME = "best_model"
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Union[Dict[str, Any], list], prefix: str = "") -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
-    for key, value in tree.items():
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for key, value in items:
         path = f"{prefix}{key}"
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list)):
             flat.update(_flatten(value, path + "/"))
         else:
             flat[path] = np.asarray(value)
@@ -46,14 +49,10 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    tree: Dict[str, Any] = {}
-    for path, value in flat.items():
-        *parents, leaf = path.split("/")
-        node = tree
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = value
-    return tree
+    from ..convert import nest
+
+    return nest((tuple(int(part) if part.isdigit() else part for part in path.split("/")),
+                 value) for path, value in flat.items())
 
 
 def _write_meta(path: Path, tokenizer_state, config, *, epoch: int, step: int,

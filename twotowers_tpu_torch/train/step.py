@@ -8,6 +8,9 @@ same ``TrainState`` is returned. Metrics stay 0-d tensors on the device, so
 the loop can read them one step late without stalling the card.
 
 Loss arity (triplet / pair / multi_neg) decides which encodings are taken.
+In training mode every tower draws its dropout masks (each block's, for
+the sequence towers) from the state's generator, in the order of the
+encodings.
 A frozen table (``trainable: false``) is not a trainable parameter: it gets
 no gradient and is not in the optimizer, so it gets no update of any kind.
 """
