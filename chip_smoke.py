@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving, training and search paths on one CUDA
+card and check them.
 
     python3 chip_smoke.py [--seed 0] [--n-docs 1000000]
 
@@ -55,9 +55,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               ``bench.py``'s transformer_tower_train step (vocab 8,192,
               seq 48, batch 4,096) timed and profiled, and the cnn, rnn and
               transformer towers in f32 on the card against the CPU.
+8. pretrained -- ``configs/word2vec_skipgram.yml`` at full width (word
+              tokenizer, max_len 32; a frozen ``pretrained`` table 300 wide,
+              gensim's vectors absent so the seeded fallback; tied ``mean``
+              tower 256; triplet loss, margin 0.3; Adam 5e-4; batch 128;
+              f32), from the dict ``WORD2VEC_CONFIG`` with its paths under
+              ``build/chip_smoke/pretrained/``, its depth cut from 5 epochs
+              to 2 and ``profile:`` on: ``train_model`` over 16,384 + 100
+              synthetic Zipf triplets (vocab ~32k, so the lookup is the
+              gather kernel), checks that the table on the card is the
+              CPU's fallback table bit for bit before and after, that the
+              gather launches are 3 a step and the scatter-add's 0, that
+              the loss falls, that the trace names ``gather_rows_kernel``
+              and that a resumed epoch carries the step count and Adam's
+              state; then the search CLI (``index.cli.main``: build-index
+              from ``best_model`` over 100,000 texts, 8 searches) and
+              ``GloVeSearch`` (50-wide hashed vectors) over the same texts,
+              each search found first and held against the plain version;
+              the gather at D=300 and kernel #1 at D=256 and D=50 checked
+              and timed; the step's time and busy share.
 
 The launch counts are zeroed just before each main path (serve, train,
-transformer) and read just after it. Then the kernel table, the nvidia-smi
+transformer, pretrained) and read just after it. Then the kernel table, the nvidia-smi
 line and, last, the result line. No path is cut in width; depth is cut as
 named above. Imports nothing of JAX and nothing of the JAX package.
 """
@@ -680,16 +699,22 @@ WORD_CONFIG = {  # bench.py's word_vocab_32k_train, as a training config
 }
 
 
+def zipf_words() -> tuple:
+    """The words ``w<rank>`` (indexed by rank), the ranks 1..32,766 and their
+    Zipf(1.07) probabilities."""
+    names = np.array([f"w{r}" for r in range(WORD_VOCAB)], dtype=object)
+    ranks = np.arange(1, WORD_VOCAB - 1)
+    weights = 1.0 / np.power(ranks, 1.07)
+    return names, ranks, weights / weights.sum()
+
+
 def word_triplets_tsv(path: Path, n_rows: int, seed: int) -> list:
     """Write ``n_rows`` triplets of words ``w<rank>``, ranks drawn Zipf(1.07)
     over 1..32,766, 16-64 words a text. The positive is its query with a
     quarter of the words redrawn; the negative is drawn afresh. Returns the
     positives."""
     rng = np.random.default_rng(seed)
-    names = np.array([f"w{r}" for r in range(WORD_VOCAB)], dtype=object)
-    ranks = np.arange(1, WORD_VOCAB - 1)
-    weights = 1.0 / np.power(ranks, 1.07)
-    weights /= weights.sum()
+    names, ranks, weights = zipf_words()
     lengths = rng.integers(16, 65, size=(2, n_rows))
     words = rng.choice(ranks, size=int(lengths.sum()), p=weights)
     query_words = np.split(words[:lengths[0].sum()], np.cumsum(lengths[0])[:-1])
@@ -1199,22 +1224,331 @@ def transformer_phase(card: dict, seed: int) -> dict:
     return {"launches": launches, "step_ms": full["step_ms"], "vocab": vocab}
 
 
+# ---- 8. pretrained ------------------------------------------------------------
+
+WORD2VEC_CONFIG = {  # configs/word2vec_skipgram.yml as load_config resolves it
+    "data": "data/processed/classic_triplets.parquet",
+    "checkpoint_dir": "checkpoints",
+    "log_dir": "logs",
+    "precision": "float32",
+    "wandb": {"project": "two-tower-retrieval", "entity": None},
+    "huggingface": {"push_to_hub": False, "repo_id": "two-tower-tpu", "private": False},
+    "tokeniser": {"type": "word", "max_len": 32, "lowercase": True, "strip_punctuation": True},
+    "embedding": {"type": "pretrained", "embedding_dim": 300,
+                  "source": "word2vec-google-news-300", "trainable": False},
+    "encoder": {"arch": "mean", "hidden_dim": 256, "tied_weights": True, "dropout": 0.1},
+    "loss": {"type": "triplet", "margin": 0.3},
+    "optimizer": {"type": "adam", "lr": 0.0005},
+    "batch_size": 128,
+    "learning_rate": 0.001,
+    "epochs": 5,
+    "max_sequence_length": 64,
+    "use_wandb": False,
+}
+W2V_ROWS = 16_384 + 100  # synthetic triplets: the last batch of 128 is padded
+W2V_DOCS, W2V_SEARCHES, W2V_TOP_K = 100_000, 8, 10
+
+
+def word2vec_config(work: Path) -> dict:
+    """The training config of the pretrained phase: WORD2VEC_CONFIG with its
+    paths under ``work``, its depth cut from 5 epochs to 2 and the first
+    epoch traced into ``work/trace``."""
+    return {**WORD2VEC_CONFIG, "data": str(work / "triplets.tsv"),
+            "checkpoint_dir": str(work / "ckpt"), "log_dir": str(work / "logs"), "epochs": 2,
+            "profile": {"trace_dir": str(work / "trace")}}
+
+
+def zipf_texts(n: int, seed: int) -> list:
+    """``n`` unique texts of 16-64 words ``w<rank>``, ranks drawn Zipf(1.07)
+    over 1..32,766 (the words of ``word_triplets_tsv``)."""
+    rng = np.random.default_rng(seed)
+    names, ranks, weights = zipf_words()
+    lengths = rng.integers(16, 65, size=n)
+    words = rng.choice(ranks, size=int(lengths.sum()), p=weights)
+    texts = [" ".join(names[w]) for w in np.split(words, np.cumsum(lengths)[:-1])]
+    if len(set(texts)) != n:
+        raise RuntimeError("synthetic texts are not unique")
+    return texts
+
+
+def _found_first(results: list, text: str) -> bool:
+    """``text`` is the first result, or ties with it."""
+    return results[0][0] == text or any(
+        doc == text and score >= results[0][1] - 1e-6 for doc, score in results)
+
+
+def _against_plain(docs, n_docs, query_vec, results, position) -> tuple:
+    """A search's (document, score) results against score_topk_reference
+    on the same device matrix: ``agree``'s tolerance."""
+    from twotowers_tpu_torch.ops.topk_score import score_topk_reference
+
+    got = (torch.tensor([[s for _, s in results]], device=docs.device),
+           torch.tensor([[position[d] for d, _ in results]], dtype=torch.int32,
+                        device=docs.device))
+    want = score_topk_reference(docs, query_vec, len(results), n_docs)
+    return agree(docs, query_vec, got, want, n_docs)
+
+
+def topk_row(docs, n_docs, query_vec, k) -> dict:
+    """Kernel #1 at a phase's shape: its time, the plain version's, the
+    library yardstick's and the bound (CUDA events)."""
+    from twotowers_tpu_torch.kernels.topk import score_topk_cuda
+    from twotowers_tpu_torch.ops.topk_score import score_topk_reference
+
+    real = docs[:n_docs]
+    got = score_topk_cuda(docs, query_vec, k, n_docs)
+    err, swaps = agree(docs, query_vec, got, score_topk_reference(docs, query_vec, k, n_docs),
+                       n_docs)
+    bound, bound_by = topk_bound(n_docs, docs.shape[1], query_vec.shape[0], k, docs.dtype)
+    return {"shape": {"n": n_docs, "d": docs.shape[1], "q": query_vec.shape[0], "k": k,
+                      "dtype": str(docs.dtype)},
+            "max_abs_err": err, "near_tie_swaps": swaps,
+            "ms": cuda_ms(lambda: score_topk_cuda(docs, query_vec, k, n_docs)),
+            "plain_ms": cuda_ms(lambda: score_topk_reference(docs, query_vec, k, n_docs)),
+            "library_ms": cuda_ms(lambda: torch.topk(query_vec @ real.T, k)),
+            "bound_ms": bound, "bound_by": bound_by,
+            "device_ms_by_kernel": device_ms_by_kernel(
+                lambda: score_topk_cuda(docs, query_vec, k, n_docs))}
+
+
+def pretrained_phase(card: dict, seed: int) -> dict:
+    import contextlib
+    import io
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from twotowers_tpu_torch.convert import opt_state_to_jax
+    from twotowers_tpu_torch.index import GloVeSearch, TwoTowerSearch, cli
+    from twotowers_tpu_torch.kernels import gather, scatter_add, topk
+    from twotowers_tpu_torch.models.embeddings import pretrained_table
+    from twotowers_tpu_torch.train import (
+        build_pipeline, latest_checkpoint, load_checkpoint, train_model)
+
+    work = ROOT / "build" / "chip_smoke" / "pretrained"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    config = word2vec_config(work)
+    emit("pretrained", step="config", source="configs/word2vec_skipgram.yml",
+         changed={k: config[k] for k in ("data", "checkpoint_dir", "log_dir", "epochs",
+                                          "profile")},
+         tokeniser=config["tokeniser"], embedding=config["embedding"],
+         encoder=config["encoder"], loss=config["loss"], optimizer=config["optimizer"],
+         precision=config["precision"], batch_size=config["batch_size"])
+
+    # 1. the frozen table before training: the pipeline's, on the card, is
+    # the fallback table built on the CPU, bit for bit (no gensim here)
+    start = time.perf_counter()
+    word_triplets_tsv(work / "triplets.tsv", W2V_ROWS, seed)
+    data_s = time.perf_counter() - start
+    before = build_pipeline(config, seed=seed)
+    cpu_table = torch.from_numpy(pretrained_table(before.spec.embedding))
+    if before.model.embedding.table.device.type != "cuda" or \
+            not torch.equal(before.model.embedding.table.cpu(), cpu_table):
+        raise AssertionError("the table on the card is not the CPU's fallback table")
+    del before
+
+    # 2. train: the main path starts here
+    gather.LAUNCHES = scatter_add.LAUNCHES = topk.LAUNCHES = 0
+    start = time.perf_counter()
+    state, pipeline = train_model(config, seed=seed)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    launches = {"gather_rows": gather.LAUNCHES, "scatter_add_rows": scatter_add.LAUNCHES}
+    batch_size = config["batch_size"]
+    steps = 2 * math.ceil(W2V_ROWS / batch_size)
+    emb_spec = pipeline.spec.embedding
+    vocab = pipeline.dataset.vocab_size
+    if (emb_spec.kind, emb_spec.trainable, emb_spec.embedding_dim) != ("pretrained", False, 300) \
+            or vocab <= 512 or state.step != steps:
+        raise AssertionError(f"{emb_spec}, vocab {vocab}, {state.step} steps")
+    if launches != {"gather_rows": 3 * steps, "scatter_add_rows": 0}:
+        raise AssertionError(f"launches {launches}: want 3 lookups x {steps} steps, no scatter")
+    if torch.from_numpy(pretrained_table(emb_spec)).ne(cpu_table).any() or \
+            not torch.equal(state.model.embedding.table.cpu(), cpu_table):
+        raise AssertionError("the frozen table changed in training")
+    with open(next((work / "logs").glob("*_metrics.jsonl"))) as f:
+        records = [json.loads(line) for line in f]
+    epoch_loss = [r["train/epoch_loss"] for r in records if "train/epoch_loss" in r]
+    if len(epoch_loss) != 2 or not epoch_loss[1] < epoch_loss[0]:
+        raise AssertionError(f"epoch losses {epoch_loss}: epoch 2 must be below epoch 1")
+    best = work / "ckpt" / "best_model"
+    tree, meta = load_checkpoint(str(best))
+    if not np.array_equal(tree["params"]["embedding"]["table"], cpu_table.numpy()) or \
+            tree["opt_state"]["mu"]["embedding"]["table"].any():
+        raise AssertionError("best_model's table or its zero moments differ")
+    traces = list((work / "trace").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{len(traces)} trace files for one traced epoch")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_events = [e for e in events if "gather_rows_kernel" in str(e.get("name", ""))]
+    if len(kernel_events) < steps // 2:  # at least one a traced step
+        raise AssertionError(f"the trace names gather_rows_kernel {len(kernel_events)} times")
+    emit("pretrained", step="train", rows=W2V_ROWS, vocab=vocab, steps=steps,
+         epoch_loss=epoch_loss, launches=launches, data_s=data_s, train_model_s=train_s,
+         trace={"file": traces[0].name, "mb": traces[0].stat().st_size / 1e6,
+                "events": len(events), "gather_rows_kernel_events": len(kernel_events)})
+
+    # 3. a resumed epoch carries its step count and the optimizer state
+    resumed, _ = train_model({**config, "epochs": 3, "resume": "latest", "profile": None},
+                             seed=seed)
+    count = int(opt_state_to_jax(resumed.model, resumed.optimizer)["count"])
+    _, latest = load_checkpoint(latest_checkpoint(str(work / "ckpt")))
+    if resumed.step != steps + steps // 2 or count != resumed.step or latest["epoch"] != 3 \
+            or not torch.equal(resumed.model.embedding.table.cpu(), cpu_table):
+        raise AssertionError(f"resume: step {resumed.step}, Adam count {count}, "
+                             f"latest epoch {latest['epoch']}")
+
+    # 4. the search CLI over best_model: build-index, then 8 searches, each
+    # recorded with its exact results
+    texts = zipf_texts(W2V_DOCS, seed + 5)
+    position = {t: i for i, t in enumerate(texts)}
+    (work / "docs.txt").write_text("\n".join(texts) + "\n")
+    index_dir = str(work / "index")
+    start = time.perf_counter()
+    if cli.main(["build-index", "--checkpoint", str(best), "--documents",
+                 str(work / "docs.txt"), "--index", index_dir]) != 0:
+        raise AssertionError("build-index failed")
+    build_s = time.perf_counter() - start
+    picks = np.random.default_rng(seed + 6).choice(W2V_DOCS, size=W2V_SEARCHES, replace=False)
+    recorded = []
+    search_fn = TwoTowerSearch.search
+
+    def recording(self, query, top_k=5):
+        start = time.perf_counter()
+        out = search_fn(self, query, top_k)
+        recorded.append((self, query, out, (time.perf_counter() - start) * 1e3))
+        return out
+
+    with mock.patch.object(TwoTowerSearch, "search", recording):
+        for i in picks:
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                code = cli.main(["search", "--checkpoint", str(best), "--index", index_dir,
+                                 "--query", texts[i], "--top_k", str(W2V_TOP_K)])
+            lines = printed.getvalue().splitlines()
+            if code != 0 or len(lines) != W2V_TOP_K + 1 or \
+                    f"{W2V_DOCS} docs)" not in lines[0]:
+                raise AssertionError(f"search printed {lines[:2]}")
+    cli_errs, cli_ms = [], []
+    for (search, query, results, ms) in recorded:
+        if search.device.type != "cuda" or not _found_first(results, query):
+            raise AssertionError(f"search CLI: {query[:40]!r} not first: {results[:2]}")
+        q_vec = search._encode_texts_device([query], "query")
+        cli_errs.append(_against_plain(search._doc_matrix, search.num_documents, q_vec,
+                                       results, position))
+        cli_ms.append(ms)
+    cli_launches = topk.LAUNCHES
+
+    # 5. GloVeSearch offline: 50-wide hashed word vectors, the same texts
+    glove = GloVeSearch("glove-twitter-25")
+    if glove.dim != 50 or glove.device.type != "cuda":
+        raise AssertionError(f"GloVeSearch dim {glove.dim} on {glove.device}")
+    start = time.perf_counter()
+    glove.index_documents(texts)
+    torch.cuda.synchronize()
+    glove_index_s = time.perf_counter() - start
+    glove_errs, glove_ms = [], []
+    for i in picks:
+        start = time.perf_counter()
+        results = glove.search(texts[i], top_k=W2V_TOP_K)
+        glove_ms.append((time.perf_counter() - start) * 1e3)
+        if not _found_first(results, texts[i]):
+            raise AssertionError(f"GloVe: {texts[i][:40]!r} not first: {results[:2]}")
+        q_vec = torch.from_numpy(glove.encode([texts[i]])).cuda()
+        glove_errs.append(_against_plain(glove._doc_matrix, glove.num_documents, q_vec,
+                                         results, position))
+    launches["score_topk"] = topk.LAUNCHES  # the main path ends here
+    if cli_launches != W2V_SEARCHES or launches["score_topk"] != 2 * W2V_SEARCHES:
+        raise AssertionError(f"score_topk launches: {cli_launches} CLI, "
+                             f"{launches['score_topk']} in all, for {W2V_SEARCHES} + "
+                             f"{W2V_SEARCHES} searches")
+    emit("pretrained", step="search", docs=W2V_DOCS, top_k=W2V_TOP_K,
+         build_index_s=build_s, build_index_docs_per_s=W2V_DOCS / build_s,
+         cli_search_ms=cli_ms, cli_max_abs_err=max(e for e, _ in cli_errs),
+         cli_near_tie_swaps=sum(s for _, s in cli_errs),
+         glove_index_s=glove_index_s, glove_index_docs_per_s=W2V_DOCS / glove_index_s,
+         glove_search_ms=glove_ms, glove_max_abs_err=max(e for e, _ in glove_errs),
+         glove_near_tie_swaps=sum(s for _, s in glove_errs),
+         score_topk_launches=launches["score_topk"], card=card["nvidia_smi"])
+
+    # 6. the kernels at this phase's shapes against their plain versions,
+    # timed: the gather of one encode (128 x 32 ids) from the frozen table,
+    # kernel #1 at D=256 (the CLI's index) and D=50 (GloVe's, scalar loads)
+    batch = _device_batch(pipeline, batch_size)
+    ids = batch[0].reshape(-1).to(torch.int32)
+    table = state.model.embedding.table.detach()
+    got = gather.gather_rows(table, ids, torch.float32)
+    torch.cuda.synchronize()
+    want = gather.gather_rows_reference(table, ids, torch.float32)
+    if not torch.equal(got, want):
+        raise AssertionError("gather at D=300: not bit-equal to the plain version")
+    rows_read = int(torch.unique(ids).numel())  # the table rows this batch needs
+    ids64 = ids.long()
+    gather_row = {
+        "shape": {"n": ids.numel(), "d": 300, "v": vocab, "table": "float32", "out": "float32",
+                  "distinct_ids": rows_read},
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": cuda_ms(lambda: gather.gather_rows(table, ids, torch.float32)),
+        "plain_ms": cuda_ms(lambda: gather.gather_rows_reference(table, ids, torch.float32)),
+        "library_ms": cuda_ms(lambda: F.embedding(ids64, table)),
+    }
+    gather_row["bound_ms"], gather_row["bound_by"] = bytes_bound(
+        ids.numel() * 4 + rows_read * 300 * 4 + ids.numel() * 300 * 4)
+    # at 4,096 rows a call's host time exceeds the kernel's: the device's own
+    gather_row["device_ms_by_kernel"] = device_ms_by_kernel(
+        lambda: gather.gather_rows(table, ids, torch.float32))
+    search = recorded[0][0]
+    cli_row = topk_row(search._doc_matrix, search.num_documents,
+                       search._encode_texts_device([recorded[0][1]], "query"), W2V_TOP_K)
+    glove_row = topk_row(glove._doc_matrix, glove.num_documents,
+                         torch.from_numpy(glove.encode([texts[picks[0]]])).cuda(), W2V_TOP_K)
+    for case, row in (("gather d300", gather_row), ("score_topk d256 (search CLI)", cli_row),
+                      ("score_topk d50 (GloVe)", glove_row)):
+        emit("kernels", case=f"pretrained phase: {case}", **row, card=card["nvidia_smi"])
+
+    # 7. the step's time (CUDA events) and the device's busy share of it
+    ms, prof_state, prof_step = _step_ms(copy.deepcopy(state.model), pipeline.loss_def, config,
+                                         batch, seed, steps=20)
+    rows = device_rows(lambda: prof_step(prof_state, *batch), 3)
+    busy_ms = sum(r[1] for r in rows)
+    step = {"step_ms": ms, "pairs_per_s": batch_size / ms * 1e3,
+            "device_busy_ms_per_step": busy_ms, "busy_share": busy_ms / ms,
+            "launches_per_step": sum(r[2] for r in rows),
+            "top": [[name[:70], t, n] for name, t, n in rows[:10]], "card": card["nvidia_smi"]}
+    emit("pretrained", step="step", batch=batch_size, **step)
+    return {"launches": launches, "gather": gather_row, "search_cli": cli_row,
+            "glove": glove_row}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--n-docs", type=int, default=1_000_000)
     args = parser.parse_args()
 
-    card = device_phase()
+    seconds = {}
+
+    def timed(name, phase, *phase_args):
+        start = time.perf_counter()
+        out = phase(*phase_args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    card = timed("device", device_phase)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version sums in IEEE f32
     torch.backends.cudnn.allow_tf32 = False
-    build_phase()
-    topk_row = kernels_phase(card, args.n_docs, args.seed)
-    serve = serve_phase(card, args.n_docs, args.seed)
-    embed_rows = embed_kernels_phase(card, args.seed)
-    train = train_phase(card, args.seed, embed_rows)
-    transformer = transformer_phase(card, args.seed)
+    timed("build", build_phase)
+    topk_row = timed("kernels", kernels_phase, card, args.n_docs, args.seed)
+    serve = timed("serve", serve_phase, card, args.n_docs, args.seed)
+    embed_rows = timed("embed", embed_kernels_phase, card, args.seed)
+    train = timed("train", train_phase, card, args.seed, embed_rows)
+    transformer = timed("transformer", transformer_phase, card, args.seed)
+    pretrained = timed("pretrained", pretrained_phase, card, args.seed)
+    emit("seconds", **seconds, total=sum(seconds.values()))
     tf_launches = transformer["launches"]
+    w2v_launches = pretrained["launches"]
     embed_shape = {"n": MAIN_ROWS, "d": WORD_EMB, "v": WORD_VOCAB}
     print(json.dumps({"kernels": [{
         "name": "score_topk", "route": "cuda",
@@ -1222,6 +1556,7 @@ def main() -> int:
         "replaces": "twotowers_tpu/kernels/pallas_topk.py:52",
         "launches": serve["score_topk_launches"],
         "launches_transformer": tf_launches["score_topk"],
+        "launches_pretrained": w2v_launches["score_topk"],
         "max_abs_err": topk_row["max_abs_err"],
         "tolerance": "scores rtol 1e-5 atol 1e-6; indices equal but for near-ties "
                      "(f64 rescores within 1e-5 relative); integer case bit-equal",
@@ -1232,6 +1567,7 @@ def main() -> int:
         "single_search": {**{key: topk_row["q1_f32"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape": {"n": args.n_docs, "d": 128, "q": 1, "k": 10, "dtype": "float32"}},
+        "pretrained_search_cli": pretrained["search_cli"], "pretrained_glove": pretrained["glove"],
         "card": card["nvidia_smi"],
     }, {
         "name": "scatter_add_rows", "route": "cuda",
@@ -1239,6 +1575,7 @@ def main() -> int:
         "replaces": "twotowers_tpu/kernels/pallas_scatter_add.py:82",
         "launches": train["launches"]["scatter_add_rows"],
         "launches_transformer": tf_launches["scatter_add_rows"],
+        "launches_pretrained": w2v_launches["scatter_add_rows"],
         "max_abs_err": embed_rows["scatter_add_rows"]["max_abs_err"],
         "tolerance": "|kernel - plain| <= 1e-5 * sum|g| of the row + 1e-6 (f32 sums in "
                      "another order); integer-valued g bit-equal",
@@ -1254,12 +1591,14 @@ def main() -> int:
         "replaces": "tools/exp_pallas_embed.py:81",
         "launches": train["launches"]["gather_rows"],
         "launches_transformer": tf_launches["gather_rows"],
+        "launches_pretrained": w2v_launches["gather_rows"],
         "max_abs_err": embed_rows["gather_rows"]["max_abs_err"],
         "tolerance": "bit-equal",
         **{k: embed_rows["gather_rows"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "library": "F.embedding(ids.long(), table.bfloat16()), the table cast beforehand",
         "shape": {**embed_shape, "table": "float32", "out": "bfloat16"},
+        "pretrained": pretrained["gather"],
         "card": card["nvidia_smi"],
     }]}), flush=True)
     print(card["nvidia_smi"], flush=True)

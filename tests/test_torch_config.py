@@ -115,6 +115,20 @@ def test_chip_smoke_commits_the_transformer_config(no_env):
     assert phase["epochs"] == 2 and phase["batch_size"] == want["batch_size"] == 256
 
 
+def test_chip_smoke_commits_the_word2vec_config(no_env):
+    """The pretrained phase trains from configs/word2vec_skipgram.yml as
+    both loaders resolve it, changing only its paths, the depth and the
+    trace."""
+    want = jax_config.load_config("word2vec_skipgram.yml", apply_env=False)
+    assert chip_smoke.WORD2VEC_CONFIG == load_config("word2vec_skipgram.yml",
+                                                     apply_env=False) == want
+    phase = chip_smoke.word2vec_config(Path("/work"))
+    changed = {k for k in set(phase) | set(want) if phase.get(k) != want.get(k)}
+    assert changed == {"data", "checkpoint_dir", "log_dir", "epochs", "profile"}
+    assert phase["epochs"] == 2 and phase["profile"] == {"trace_dir": "/work/trace"}
+    assert phase["batch_size"] == 128 and phase["embedding"]["embedding_dim"] == 300
+
+
 def test_package_imports_without_yaml():
     """yaml is imported only where a file is read or written: the card's
     machine may lack it."""

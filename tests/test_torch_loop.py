@@ -134,7 +134,6 @@ def test_train_model_checkpoints_resumes_and_serves(tmp_path, np_rng):
 
 @pytest.mark.parametrize("key,value,item", [
     ("mesh", {"data": 2}, "§1 item 11"),
-    ("profile", {"trace_dir": "t"}, "§1 item 5"),
     ("huggingface", {"push_to_hub": True}, "§1 item 12"),
 ])
 def test_unported_config_keys_name_roadmap_item(tmp_path, key, value, item):

@@ -140,11 +140,6 @@ class TestEmbedding:
             {"type": "positional", "embedding_dim": 8, "trainable": False}, 30))
         assert not frozen.table.requires_grad and not frozen.pos.requires_grad
 
-    @pytest.mark.parametrize("kind", ["word2vec", "glove"])
-    def test_unported_kind_names_roadmap_item(self, kind):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-            Embedding(EmbeddingSpec(kind=kind, vocab_size=10, embedding_dim=4))
-
 
 class TestTowers:
     @pytest.mark.parametrize("arch,emb,hidden", [

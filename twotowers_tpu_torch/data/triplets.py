@@ -88,7 +88,9 @@ def _read_tsv(path: Path) -> Table:
     return {name: [row[j] for row in body] for j, name in enumerate(header)}
 
 
-def _read_parquet(path: Path) -> Table:
+def read_parquet(path: Path) -> Table:
+    """A parquet file as ``{column: list}``; pandas is imported here, and its
+    absence raises ImportError."""
     try:
         import pandas as pd
     except ImportError as exc:
@@ -104,7 +106,7 @@ def _read_table(data_path: str) -> Table:
     path = Path(data_path)
     suffix = path.suffix.lower()
     if suffix == ".parquet":
-        return _read_parquet(path)
+        return read_parquet(path)
     if suffix in (".tsv", ".txt"):
         return _read_tsv(path)
     raise ValueError(f"Unsupported file format: {suffix!r} ({data_path})")

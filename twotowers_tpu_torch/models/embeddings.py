@@ -1,15 +1,23 @@
 """Embedding stage: token ids -> dense vectors.
 
-The counterpart of ``twotowers_tpu/models/embeddings.py`` for the ``lookup``
-and ``positional`` kinds: an f32 ``(vocab_size, dim)`` table, N(0, 1) with a
-zero padding row, and for ``positional`` a learned ``(max_len, dim)`` table
-``pos``, 0.02 N(0, 1), whose first ``seq_len`` rows are added to the
-non-pad tokens. At a word-scale vocabulary (above ``_ONE_HOT_MAX_VOCAB``)
-the lookup is ``GatherScatterGrad``, the counterpart of the JAX package's
+The counterpart of ``twotowers_tpu/models/embeddings.py``: an f32
+``(vocab_size, dim)`` table with a zero padding row. ``lookup`` draws it
+N(0, 1); ``positional`` adds a learned ``(max_len, dim)`` table ``pos``,
+0.02 N(0, 1), whose first ``seq_len`` rows are added to the non-pad tokens.
+The pretrained kinds (``word2vec``, ``glove`` and ``pretrained``, the
+spelling of ``configs/word2vec_skipgram.yml``) copy the first
+``vocab_size - 1`` rows of gensim's vectors behind the padding row, cut to
+the table's width; gensim is imported only when they are built, and where
+it or its data is missing the table is a seeded N(0, 1/dim) draw. That
+seed comes from ``hashlib``, not from Python's per-process ``hash()`` as in
+the JAX package, so every process builds the same table.
+
+At a word-scale vocabulary (above ``_ONE_HOT_MAX_VOCAB``) the lookup is
+``GatherScatterGrad``, the counterpart of the JAX package's
 ``_take_scatter_grad``: the gather kernel forward, the scatter-add kernel
-backward. A frozen embedding (``trainable: false``) gets no gradient and is
-kept out of the optimizer. The pretrained kinds are not ported yet
-(ROADMAP.md §1 item 4).
+backward. A frozen embedding (``trainable: false``, the pretrained kinds'
+default) gets no gradient, so the scatter-add never runs for it, and it is
+kept out of the optimizer.
 """
 
 from __future__ import annotations
@@ -17,12 +25,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.gather import gather_rows
 from ..kernels.scatter_add import scatter_add_rows
+from ..utils.logging import get_logger
+from ..utils.seeding import stable_seed
+
+logger = get_logger("models.embeddings")
+
+# the kinds whose table is copied from pretrained vectors
+PRETRAINED_KINDS = ("word2vec", "glove", "pretrained")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +73,47 @@ def spec_from_config(config: Dict[str, Any], vocab_size: int) -> EmbeddingSpec:
         source=config.get("source", _DEFAULT_SOURCES.get(kind)),
         max_len=int(config.get("max_len", 128)),
     )
+
+
+def _pretrained_vectors(source: str) -> Optional[np.ndarray]:
+    """Try to fetch pretrained vectors via gensim; None if unavailable."""
+    try:
+        import gensim.downloader as api  # type: ignore
+
+        model = api.load(source)
+        return np.asarray(model.vectors, dtype=np.float32)
+    except Exception as exc:  # gensim, its data or the network may be absent
+        logger.warning(
+            "Pretrained vectors %r unavailable (%s); falling back to "
+            "deterministic hash init.", source, exc,
+        )
+        return None
+
+
+def _hash_fallback(spec: EmbeddingSpec) -> np.ndarray:
+    """Deterministic pseudo-pretrained table keyed on (source, vocab, dim):
+    N(0, 1) times 1/sqrt(dim), f32."""
+    rng = np.random.default_rng(
+        stable_seed(spec.source or "fallback", spec.vocab_size, spec.embedding_dim))
+    table = rng.standard_normal((spec.vocab_size, spec.embedding_dim), dtype=np.float32)
+    return table * np.float32(1.0 / np.sqrt(spec.embedding_dim))
+
+
+def pretrained_table(spec: EmbeddingSpec) -> np.ndarray:
+    """The f32 ``(vocab_size, dim)`` table of a pretrained kind: the first
+    ``vocab_size - 1`` vectors copied behind the zero padding row, cut to
+    the table's width (zeros past the vectors' width or count), or the
+    hash fallback when no vectors can be had."""
+    vectors = _pretrained_vectors(spec.source) if spec.source else None
+    if vectors is None:
+        table = _hash_fallback(spec)
+    else:
+        table = np.zeros((spec.vocab_size, spec.embedding_dim), dtype=np.float32)
+        n_copy = min(len(vectors), spec.vocab_size - 1)
+        width = min(vectors.shape[1], spec.embedding_dim)
+        table[1:1 + n_copy, :width] = vectors[:n_copy, :width]
+    table[spec.padding_idx] = 0.0
+    return table
 
 
 # At or below this vocab size the JAX package computes the lookup as a
@@ -101,10 +158,9 @@ class Embedding(nn.Module):
 
     def __init__(self, spec: EmbeddingSpec):
         super().__init__()
-        if spec.kind not in ("lookup", "positional"):
-            raise NotImplementedError(
-                f"embedding type {spec.kind!r} is not ported yet (ROADMAP.md §1 item 4)"
-            )
+        if spec.kind not in ("lookup", "positional", *PRETRAINED_KINDS):
+            raise ValueError(f"Unknown embedding: {spec.kind!r}. Available options: "
+                             f"{sorted(('lookup', 'positional', *PRETRAINED_KINDS))}")
         self.spec = spec
         self.table = nn.Parameter(
             torch.empty(spec.vocab_size, spec.embedding_dim),
@@ -118,7 +174,11 @@ class Embedding(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """N(0, 1) init with a zero padding row (nn.Embedding's default);
-        positions 0.02 N(0, 1)."""
+        positions 0.02 N(0, 1). A pretrained kind copies
+        ``pretrained_table`` and draws nothing from ``generator``."""
+        if self.spec.kind in PRETRAINED_KINDS:
+            self.table.copy_(torch.from_numpy(pretrained_table(self.spec)))
+            return
         self.table.normal_(generator=generator)
         self.table[self.spec.padding_idx] = 0.0
         if self.pos is not None:

@@ -6,15 +6,17 @@ epoch loop over fixed-shape batches copied to the device two ahead
 best-loss checkpoints and ``resume``. The step's metric scalars are read
 one step late, so the host queues the next step before it waits on the
 card. The epoch loss is the mean of batch losses weighted by their real
-samples.
+samples. ``profile: {trace_dir: DIR}`` traces the first epoch that runs
+with ``torch.profiler`` (host activity, and the card's where the model is
+on it) and writes a Chrome trace (``*.pt.trace.json``) into ``DIR``.
 
 Not ported yet, and refused rather than ignored: ``mesh:`` (ROADMAP.md §1
-item 11), ``profile:`` (§1 item 5) and ``huggingface.push_to_hub`` (§1
-item 12).
+item 11) and ``huggingface.push_to_hub`` (§1 item 12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -160,12 +162,24 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
     if config.get("mesh"):
         raise NotImplementedError(
             "mesh: (sharded training) is not ported yet (ROADMAP.md §1 item 11)")
-    if config.get("profile"):
-        raise NotImplementedError(
-            "profile: (the training trace) is not ported yet (ROADMAP.md §1 item 5)")
     if (config.get("huggingface", {}) or {}).get("push_to_hub"):
         raise NotImplementedError(
             "huggingface.push_to_hub is not ported yet (ROADMAP.md §1 item 12)")
+
+
+@contextlib.contextmanager
+def trace_to(trace_dir: str, device: torch.device):
+    """Profile the body with ``torch.profiler`` (CPU activity, plus CUDA on
+    the card) and write its Chrome trace into ``trace_dir``."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(trace_dir))):
+        yield
+    logger.info("Wrote profiler trace to %s", trace_dir)
 
 
 def train_model(config: Dict[str, Any], *, seed: int = 0,
@@ -192,6 +206,10 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
                                      max_length=pipeline.max_length)
         eval_step = make_eval_step(pipeline.loss_def)
 
+    # optional torch.profiler trace of the first epoch's steps
+    # (`profile: {trace_dir: ...}`)
+    profile_dir = (config.get("profile", {}) or {}).get("trace_dir")
+
     start_epoch = 1
     if config.get("resume"):
         resume_path = config["resume"]
@@ -212,10 +230,13 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
     with MetricLogger(config, log_dir=log_dir) as metric_logger:
         for epoch in range(start_epoch, epochs + 1):
             logger.info("Epoch %d/%d", epoch, epochs)
-            state, epoch_metrics = train_epoch(
-                train_step, state, pipeline, batch_size,
-                epoch=epoch, seed=seed, metric_logger=metric_logger,
-            )
+            profiling = profile_dir and epoch == start_epoch
+            with trace_to(profile_dir, _device_of(state.model)) if profiling \
+                    else contextlib.nullcontext():
+                state, epoch_metrics = train_epoch(
+                    train_step, state, pipeline, batch_size,
+                    epoch=epoch, seed=seed, metric_logger=metric_logger,
+                )
             if val_dataset is not None:
                 val_metrics = evaluate(eval_step, state.model, pipeline, batch_size,
                                        dataset=val_dataset)

@@ -4,6 +4,7 @@ from .config import deep_merge, load_config, parse_env_value, save_config
 from .device import resolve_device
 from .logging import Timer, get_logger, log_array_info, setup_logging
 from .registry import Registry
+from .seeding import stable_seed
 
 __all__ = [
     "Registry",
@@ -16,4 +17,5 @@ __all__ = [
     "resolve_device",
     "save_config",
     "setup_logging",
+    "stable_seed",
 ]
