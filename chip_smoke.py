@@ -490,6 +490,21 @@ def bytes_bound(n_bytes: float) -> tuple:
     return n_bytes / H100_BYTES_PER_S * 1e3, "bytes"
 
 
+def scatter_error(got, want, g, ids, vocab: int, out_dtype) -> tuple:
+    """(max |kernel - plain|, whether it is within the tolerance) of a
+    scatter-add. Tolerance: both sum f32 in other orders (the plain
+    index_add_ by atomics, in an order that changes from run to run), so
+    |kernel - plain| <= 1e-5 * the row's sum of |g| + 1e-6, plus one bf16
+    ulp of the value for a bf16 output."""
+    from twotowers_tpu_torch.kernels import scatter_add
+
+    diff = (got.float() - want.float()).abs()
+    scale = scatter_add.scatter_add_rows_reference(g.abs(), ids, vocab)
+    step = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0  # one bf16 ulp
+    tol = 1e-5 * scale + 1e-6 + step * want.float().abs()
+    return float(diff.max()), not bool((diff > tol).any())
+
+
 def embed_kernels_phase(card: dict, seed: int) -> dict:
     import torch.nn.functional as F
 
@@ -502,28 +517,22 @@ def embed_kernels_phase(card: dict, seed: int) -> dict:
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def scatter_check(case, g, ids, vocab, out_dtype=torch.float32, exact=False):
-        """Kernel against the plain version. Tolerance: both sum f32 in other
-        orders (the plain index_add_ by atomics, in an order that changes
-        from run to run), so |kernel - plain| <= 1e-5 * the row's sum of
-        |g| + 1e-6; bit-equal where the sums are exact (integer g)."""
+        """Kernel against the plain version (``scatter_error``); bit-equal
+        where the sums are exact (integer g)."""
         got = scatter_add.scatter_add_rows(g, ids, vocab, out_dtype)
         torch.cuda.synchronize()
         want = scatter_add.scatter_add_rows_reference(g, ids, vocab, out_dtype)
-        diff = (got.float() - want.float()).abs()
+        err, within = scatter_error(got, want, g, ids, vocab, out_dtype)
         if exact:
             if not torch.equal(got, want):
                 raise AssertionError(f"scatter {case}: not bit-equal to the plain version")
-        else:
-            scale = scatter_add.scatter_add_rows_reference(g.abs(), ids, vocab)
-            step = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0  # one bf16 ulp
-            tol = 1e-5 * scale + 1e-6 + step * want.float().abs()
-            if bool((diff > tol).any()):
-                raise AssertionError(f"scatter {case}: max err {float(diff.max())} beyond tolerance")
+        elif not within:
+            raise AssertionError(f"scatter {case}: max err {err} beyond tolerance")
         if not torch.equal(scatter_add.scatter_add_rows(g, ids, vocab, out_dtype), got):
             raise AssertionError(f"scatter {case}: two runs differ")
-        errs["scatter_add_rows"] = max(errs["scatter_add_rows"], float(diff.max()))
+        errs["scatter_add_rows"] = max(errs["scatter_add_rows"], err)
         emit("kernels", kernel="scatter_add_rows", case=case, n=g.shape[0], d=g.shape[1],
-             v=vocab, g=str(g.dtype), out=str(out_dtype), max_abs_err=float(diff.max()),
+             v=vocab, g=str(g.dtype), out=str(out_dtype), max_abs_err=err,
              bit_equal=bool(torch.equal(got, want)))
 
     def normal(n, d, dtype=torch.float32):
@@ -1522,6 +1531,504 @@ def pretrained_phase(card: dict, seed: int) -> dict:
             "glove": glove_row}
 
 
+# ---- 9. parallel ----------------------------------------------------------------
+
+PAR_MESH = {"data": 2, "model": 2}
+PAR_WORLD = 4  # ranks on the one card
+PAR_VOCAB = 102_400  # tools/bench_sharded_vocab.py:43: 51,200 rows a shard at model=2
+PAR_SEARCHES = 8
+PAR_INDEX_DOCS = 20_000  # ShardedTwoTowerSearch's round trip
+PAR_TIMEOUT_S = 480
+PAR_STEP_CONFIG = {  # tools/bench_sharded_vocab.py's step (bench_vocab_scaling.bench_one)
+    "embedding": {"type": "lookup", "embedding_dim": WORD_EMB},
+    "encoder": {"arch": "mean", "hidden_dim": WORD_HID, "tied_weights": True},
+    "precision": "bf16", "optimizer": {"type": "adamw", "lr": 1e-3}}
+PAR_LOSSES = {"triplet": {"margin": 0.2}, "in_batch": {"temperature": 0.1}}
+# the port's bf16 tolerances (tests/test_torch_train.py): loss within 2e-3,
+# grad_norm rtol 2e-2, params within 10 lr with a mean difference below lr / 4
+BF16_LOSS_ATOL, BF16_NORM_RTOL, BF16_PARAMS_LR, BF16_PARAMS_MEAN_LR = 2e-3, 2e-2, 10.0, 0.25
+
+
+def _par_model(seed: int):
+    """The weights of the sharded-vocabulary step: the port's draw from ``seed``
+    (the same on every rank)."""
+    from twotowers_tpu_torch.models import TwoTower, spec_from_config
+
+    spec = spec_from_config(PAR_STEP_CONFIG, PAR_VOCAB)
+    return TwoTower(spec, torch.Generator().manual_seed(seed)).cuda()
+
+
+def _positives(tsv: Path) -> list:
+    with open(tsv) as f:
+        next(f)
+        return [line.rstrip("\n").split("\t")[1] for line in f]
+
+
+def _run_ranks(target, args_list: list, work: Path, timeout: float) -> None:
+    """Start one process per argument tuple and wait for all; the first that
+    fails, or the timeout, ends the others and fails the phase."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args) for args in args_list]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    errors = sorted(work.glob("error.*.txt"))
+    if errors:
+        raise RuntimeError(f"{errors[0].name}:\n{errors[0].read_text()[-4000:]}")
+    if [p.exitcode for p in procs] != [0] * len(procs):
+        raise RuntimeError(f"ranks ended with exit codes {[p.exitcode for p in procs]} "
+                           f"(timeout {timeout} s)")
+
+
+def _rank_entry(body, name: str, work: Path, *args) -> None:
+    """Run ``body`` in a rank; its result goes to ``work/<name>.json``, its
+    traceback to ``work/error.<name>.txt``."""
+    import traceback
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions sum in IEEE f32
+        torch.backends.cudnn.allow_tf32 = False
+        (work / f"{name}.json").write_text(json.dumps(body(work, *args)))
+    except BaseException:
+        (work / f"error.{name}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def _collective_share(fn) -> dict:
+    """One more call of ``fn`` on every rank, with each all_reduce and
+    all_gather timed between two synchronizes (so the card's queued work is
+    not counted as the collective's): the call's ms, the collectives' ms and
+    their count."""
+    import torch.distributed as dist
+
+    spent = []
+
+    def timed(collective):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = collective(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - start)
+            return out
+        return call
+
+    saved = dist.all_reduce, dist.all_gather
+    dist.all_reduce, dist.all_gather = map(timed, saved)
+    try:
+        dist.barrier()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - start
+    finally:
+        dist.all_reduce, dist.all_gather = saved
+    return {"ms": total * 1e3, "collectives_ms": sum(spent) * 1e3, "collectives": len(spent)}
+
+
+def _shard_kernel_checks(local_table, ids, offset: int, dtype, seed: int) -> dict:
+    """Kernels #3 and #2 against their plain versions on the inputs that
+    one shard's lookup gives them: the global ``ids`` less the shard's
+    ``offset``, over its local rows, so the ids other shards own lie outside
+    ``[0, rows)``. The gather into the compute ``dtype`` must be bit-equal
+    (those ids read as zero rows); the scatter-add of a ``dtype`` gradient
+    into the table's dtype must be within ``scatter_error``'s tolerance
+    (those ids dropped)."""
+    from twotowers_tpu_torch.kernels import gather, scatter_add
+
+    rows = local_table.shape[0]
+    local = (ids - offset).reshape(-1).to(torch.int32)  # as sharded_embed_ids hands them on
+    got = gather.gather_rows(local_table, local, dtype)
+    torch.cuda.synchronize()
+    want = gather.gather_rows_reference(local_table, local, dtype)
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather of a shard ({rows} rows, offset {offset}): not "
+                             f"bit-equal to the plain version "
+                             f"(max err {float((got.float() - want.float()).abs().max())})")
+    gen = torch.Generator(device=ids.device).manual_seed(seed)
+    g = torch.randn(local.shape[0], local_table.shape[1], generator=gen,
+                    device=ids.device).to(dtype)
+    got = scatter_add.scatter_add_rows(g, local, rows, local_table.dtype)
+    torch.cuda.synchronize()
+    want = scatter_add.scatter_add_rows_reference(g, local, rows, local_table.dtype)
+    err, within = scatter_error(got, want, g, local, rows, local_table.dtype)
+    if not within:
+        raise AssertionError(f"scatter-add of a shard ({rows} rows, offset {offset}): max "
+                             f"err {err} beyond tolerance")
+    return {"ids": local.shape[0], "rows": rows, "offset": offset,
+            "outside": float(((local < 0) | (local >= rows)).float().mean()),
+            "gather_bit_equal": True, "scatter_max_abs_err": err}
+
+
+def _parallel_rank(work: Path, rank: int, seed: int, tsv: str) -> dict:
+    """One of the 4 ranks (sharing one card over gloo, or a card each over
+    NCCL): sharded training through ``train_model``, the
+    sharded-vocabulary step and the sharded index."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from twotowers_tpu_torch.index import ShardedDocIndex, ShardedTwoTowerSearch
+    from twotowers_tpu_torch.kernels import build, gather, scatter_add, topk
+    from twotowers_tpu_torch.models import build_loss
+    from twotowers_tpu_torch.ops.topk_score import score_topk, score_topk_reference
+    from twotowers_tpu_torch.parallel import (
+        create_sharded_train_state, initialize_distributed, make_mesh,
+        make_sharded_train_step, shard_batch)
+    from twotowers_tpu_torch.data import iterate_batches
+    from twotowers_tpu_torch.parallel.mesh import MODEL_AXIS, axis_index
+    from twotowers_tpu_torch.parallel.train import sharded_state_to_jax
+    from twotowers_tpu_torch.train import build_optimizer, load_trained_model, train_model
+
+    libs = {n: build.library_path(n).stat().st_mtime_ns for n in build.sources()}
+    backend = initialize_distributed(f"file://{work}/store", PAR_WORLD, rank, device_type="cuda")
+    out = {"rank": rank, "backend": backend, "device": torch.cuda.current_device()}
+
+    def lookup_launches():
+        return {"gather_rows": gather.LAUNCHES, "scatter_add_rows": scatter_add.LAUNCHES}
+
+    # 1. train_model under mesh: {data: 2, model: 2}, 1 epoch of phase 6's data
+    config = {**WORD_CONFIG, "data": tsv, "epochs": 1, "mesh": PAR_MESH,
+              "checkpoint_dir": str(work / "ckpt"), "log_dir": str(work / "logs")}
+    dist.barrier()
+    gather.LAUNCHES = scatter_add.LAUNCHES = 0  # the main path starts here
+    start = time.perf_counter()
+    state, pipeline = train_model(config, seed=seed)
+    torch.cuda.synchronize()
+    out["train"] = {"launches": lookup_launches(), "seconds": time.perf_counter() - start,
+                    "steps": state.step, "vocab": pipeline.dataset.vocab_size,
+                    "local_table_rows": state.model.embedding.table.shape[0]}
+    # the lookup kernels on this shard's inputs of the first batch's queries
+    mesh = make_mesh(**PAR_MESH)
+    table = state.model.embedding.table.detach()
+    first = next(iterate_batches(pipeline.dataset.arrays(), WORD_BATCH))
+    (queries,) = shard_batch(mesh, first.queries)
+    out["train"]["shard_kernels"] = _shard_kernel_checks(
+        table, queries, axis_index(mesh, MODEL_AXIS) * table.shape[0], torch.bfloat16,
+        seed + rank)
+    del state, pipeline, table, queries
+
+    # 2. one step at the JAX package's sharded-vocabulary shape, per loss;
+    # rank 0 keeps what the single-rank step is held against
+    with np.load(work / "batch.npz") as data:
+        batch = {k: data[k] for k in data.files}
+    for loss, kwargs in PAR_LOSSES.items():
+        opt = build_optimizer(PAR_STEP_CONFIG)
+        state = create_sharded_train_state(_par_model(seed), opt, mesh, seed=seed)
+        step = make_sharded_train_step(build_loss(loss, **kwargs), opt, mesh)
+        args = shard_batch(mesh, batch["q"], batch["p"],
+                           None if loss == "in_batch" else batch["n"], batch["w"])
+        gather.LAUNCHES = scatter_add.LAUNCHES = 0
+        _, metrics = step(state, *args)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        row = {"metrics": metrics, "launches": lookup_launches(),
+               "local_table_rows": state.model.embedding.table.shape[0]}
+        if loss == "triplet":  # the lookup kernels on this shard's inputs of the queries
+            table = state.model.embedding.table.detach()
+            row["shard_kernels"] = _shard_kernel_checks(
+                table, args[0], axis_index(mesh, MODEL_AXIS) * table.shape[0],
+                torch.bfloat16, seed + rank)
+        params, _ = sharded_state_to_jax(state, mesh, PAR_VOCAB)
+        if rank == 0:
+            np.savez(work / f"step_{loss}.npz", table=params["embedding"]["table"],
+                     **params["query_tower"])
+        times = []
+        for _ in range(3):  # the step's time: ranks share the card and the host
+            dist.barrier()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            step(state, *args)
+            torch.cuda.synchronize()
+            dist.barrier()
+            times.append((time.perf_counter() - start) * 1e3)
+        row["step_ms"] = times
+        row["collectives"] = _collective_share(lambda: step(state, *args))
+        out[f"step_{loss}"] = row
+        del state, step, args
+        torch.cuda.empty_cache()
+
+    # 3. ShardedDocIndex over a (1, 4) mesh: 1M x 128 f32, 8 single searches
+    # and one 256-query batch, each against the kernel and the plain version
+    # over the whole matrix on this rank
+    mesh14 = make_mesh(1, 4)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    docs = F.normalize(torch.randn(1_000_000, 128, generator=gen, device="cuda"), dim=1)
+    fresh = F.normalize(torch.randn(PAR_SEARCHES // 2 + 128, 128, generator=gen,
+                                    device="cuda"), dim=1)
+    picks = torch.randint(0, docs.shape[0], (PAR_SEARCHES // 2 + 128,), generator=gen,
+                          device="cuda")
+    singles = torch.cat([docs[picks[:PAR_SEARCHES // 2]], fresh[:PAR_SEARCHES // 2]])
+    queries = [singles[i:i + 1] for i in range(PAR_SEARCHES)] + \
+        [torch.cat([docs[picks[PAR_SEARCHES // 2:]], fresh[PAR_SEARCHES // 2:]])]
+    index = ShardedDocIndex(mesh14)
+    index.build(docs.cpu().numpy())
+    host_queries = [q.cpu().numpy() for q in queries]
+    dist.barrier()
+    topk.LAUNCHES = 0  # the main path starts here
+    results, search_ms = [], []
+    for q in host_queries:
+        start = time.perf_counter()
+        results.append(index.search_vectors(q, 10))
+        search_ms.append((time.perf_counter() - start) * 1e3)
+    index_launches = topk.LAUNCHES  # the main path ends here
+    batch_collectives = _collective_share(lambda: index.search_vectors(host_queries[-1], 10))
+    errs = []
+    for q, (scores, idx) in zip(queries, results):
+        got = (torch.from_numpy(scores).cuda(), torch.from_numpy(idx).cuda())
+        errs.append(agree(docs, q, got, score_topk(docs, q, 10)))
+        errs.append(agree(docs, q, got, score_topk_reference(docs, q, 10)))
+    found = [int(results[i][1][0, 0]) == int(picks[i]) for i in range(PAR_SEARCHES // 2)]
+    out["index"] = {"launches": {"score_topk": index_launches}, "search_ms": search_ms,
+                    "batch_collectives": batch_collectives,
+                    "max_abs_err": max(e for e, _ in errs),
+                    "near_tie_swaps": sum(s for _, s in errs), "found_first": found,
+                    "rows_per_shard": index._rows_per_shard}
+    del index, docs
+    torch.cuda.empty_cache()
+
+    # 4. ShardedTwoTowerSearch: index the trained model's documents, save
+    # (rank 0 writes), load on every rank, search again
+    model, spec, tokenizer, _ = load_trained_model(str(work / "ckpt" / "best_model"))
+    texts = _positives(Path(tsv))[:PAR_INDEX_DOCS]
+    search = ShardedTwoTowerSearch(model, spec, tokenizer, mesh14, max_length=WORD_SEQ,
+                                   encode_batch_size=4096)
+    search.index_documents(texts)
+    before = [search.search(texts[i], top_k=5) for i in range(0, PAR_INDEX_DOCS, 2500)]
+    search.save_index(str(work / "index"))
+    loaded = ShardedTwoTowerSearch(model, spec, tokenizer, mesh14, max_length=WORD_SEQ,
+                                   encode_batch_size=4096)
+    loaded.load_index(str(work / "index"))
+    after = [loaded.search(texts[i], top_k=5) for i in range(0, PAR_INDEX_DOCS, 2500)]
+    out["round_trip"] = {"equal": before == after, "docs": loaded.num_documents,
+                         "found_first": [_found_first(r, texts[i]) for r, i in
+                                         zip(after, range(0, PAR_INDEX_DOCS, 2500))]}
+    out["rebuilt"] = build.build() != 0.0 or libs != {
+        n: build.library_path(n).stat().st_mtime_ns for n in build.sources()}
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _nccl_rank(work: Path, seed: int) -> dict:
+    """A 1-rank NCCL group (the backend rule's choice for a rank with a card
+    of its own): one sharded step on a (1, 1) mesh against the unsharded
+    step, and the collectives of the sharded lookup and of global negatives
+    against their single-rank values."""
+    import torch.distributed as dist
+
+    from twotowers_tpu_torch.models import build_loss
+    from twotowers_tpu_torch.models.embeddings import GatherScatterGrad
+    from twotowers_tpu_torch.models.losses import in_batch_sampled_softmax_loss
+    from twotowers_tpu_torch.parallel import (
+        create_sharded_train_state, global_in_batch_loss, make_mesh,
+        make_sharded_train_step, sharded_embed_ids)
+    from twotowers_tpu_torch.parallel.mesh import choose_backend
+    from twotowers_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+
+    backend = choose_backend("cuda", 1)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{work}/nccl_store", rank=0,
+                            world_size=1)
+    mesh = make_mesh(1, 1)
+    with np.load(work / "batch.npz") as data:
+        q, p, n, w = (torch.from_numpy(data[k][:4096]).cuda() for k in ("q", "p", "n", "w"))
+    loss_def = build_loss("triplet", margin=0.2)
+    metrics = []
+    for sharded in (True, False):
+        opt = build_optimizer(PAR_STEP_CONFIG)
+        if sharded:
+            state = create_sharded_train_state(_par_model(seed), opt, mesh, seed=seed)
+            step = make_sharded_train_step(loss_def, opt, mesh)
+        else:
+            state = create_train_state(_par_model(seed), opt, seed)
+            step = make_train_step(loss_def, opt)
+        _, m = step(state, q, p, n, w)
+        metrics.append({k: float(v) for k, v in m.items()})
+    table = _par_model(seed).embedding.table.detach()
+    lookup = sharded_embed_ids(table, q, mesh, torch.bfloat16)  # NCCL all_reduce
+    docs = torch.nn.functional.normalize(lookup.float().mean(1), dim=1)
+    global_loss, _ = global_in_batch_loss(docs, docs, w, mesh)  # NCCL all_gather
+    local_loss, _ = in_batch_sampled_softmax_loss(docs, docs, w)
+    out = {"backend": dist.get_backend(), "metrics_sharded": metrics[0],
+           "metrics_unsharded": metrics[1],
+           "lookup_equal": torch.equal(lookup, GatherScatterGrad.apply(table, q, torch.bfloat16)),
+           "in_batch": [float(global_loss), float(local_loss)]}
+    dist.destroy_process_group()
+    return out
+
+
+def parallel_phase(card: dict, seed: int) -> dict:
+    """4 ranks as a {data: 2, model: 2} mesh, then a 1-rank NCCL group. By
+    the backend rule the 4 ranks share one card over gloo; on a machine
+    with 4 cards each takes its own over NCCL."""
+    from twotowers_tpu_torch.index.two_tower import TwoTowerSearch
+    from twotowers_tpu_torch.models import build_loss
+    from twotowers_tpu_torch.parallel.mesh import choose_backend
+    from twotowers_tpu_torch.train import (
+        build_optimizer, create_train_state, load_checkpoint, load_trained_model,
+        make_train_step)
+    from twotowers_tpu_torch.convert import params_to_jax
+
+    work = ROOT / "build" / "chip_smoke" / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    tsv = ROOT / "build" / "chip_smoke" / "train" / "triplets.tsv"  # phase 6's data
+    rng = np.random.default_rng(seed + 9)
+    ids = zipf_ids(rng, PAR_VOCAB, 3 * WORD_BATCH * WORD_SEQ).reshape(3, WORD_BATCH, WORD_SEQ)
+    np.savez(work / "batch.npz", q=ids[0], p=ids[1], n=ids[2],
+             w=np.ones(WORD_BATCH, np.float32))
+
+    start = time.perf_counter()
+    _run_ranks(_rank_entry, [(_parallel_rank, f"rank{r}", work, r, seed, str(tsv))
+                             for r in range(PAR_WORLD)], work, PAR_TIMEOUT_S)
+    ranks_s = time.perf_counter() - start
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(PAR_WORLD)]
+
+    backend, cards = choose_backend("cuda", PAR_WORLD), torch.cuda.device_count()
+    # 1. the sharded train_model: each rank's lookup kernels ran 3 times a
+    # step; rank 0 alone wrote one metrics file and the checkpoints, with
+    # the whole, unpadded table; the loss fell
+    steps = math.ceil(TRAIN_ROWS / WORD_BATCH)
+    for r in ranks:
+        t = r["train"]
+        if r["backend"] != backend or r["device"] != r["rank"] % cards or \
+                t["steps"] != steps or \
+                t["launches"] != {"gather_rows": 3 * steps, "scatter_add_rows": 3 * steps} or \
+                t["local_table_rows"] != -(-t["vocab"] // PAR_MESH["model"]) or r["rebuilt"]:
+            raise AssertionError(f"rank {r['rank']}: {r['backend']} on {r['device']}, {t}, "
+                                 f"rebuilt {r['rebuilt']}")
+    # kernels #3 and #2 on each shard's inputs: some ids inside the shard
+    # and some outside it, on every rank
+    shard_checks = {r["rank"]: {"train_model": r["train"]["shard_kernels"],
+                                "step": r["step_triplet"]["shard_kernels"]} for r in ranks}
+    for rank, checks in shard_checks.items():
+        if not all(0.0 < c["outside"] < 1.0 for c in checks.values()):
+            raise AssertionError(f"rank {rank}: a shard's ids all inside or all outside "
+                                 f"its rows: {checks}")
+    metric_files = list((work / "logs").glob("*_metrics.jsonl"))
+    ckpts = sorted(p.name for p in (work / "ckpt").iterdir())
+    if len(metric_files) != 1 or len(ckpts) != 2 or "best_model" not in ckpts:
+        raise AssertionError(f"metrics files {metric_files}, checkpoints {ckpts}")
+    records = [json.loads(line) for line in metric_files[0].read_text().splitlines()]
+    batch_loss = [r["train/batch_loss"] for r in records if "train/batch_loss" in r]
+    # the last batch holds 100 real rows; the last full one is compared
+    if len(batch_loss) != steps or not batch_loss[-2] < batch_loss[0] or \
+            not all(math.isfinite(v) for v in batch_loss):
+        raise AssertionError(f"batch losses {batch_loss}: the last full batch's must be "
+                             f"below the first's")
+    vocab = ranks[0]["train"]["vocab"]
+    tree, _ = load_checkpoint(str(work / "ckpt" / "best_model"))
+    if tree["params"]["embedding"]["table"].shape != (vocab, WORD_EMB) or \
+            tree["opt_state"]["mu"]["embedding"]["table"].shape != (vocab, WORD_EMB):
+        raise AssertionError("the checkpoint's table is not the whole, unpadded one")
+    model, spec, tokenizer, _ = load_trained_model(str(work / "ckpt" / "best_model"))
+    positives = _positives(tsv)
+    search = TwoTowerSearch(model, spec, tokenizer, max_length=WORD_SEQ, encode_batch_size=4096)
+    search.index_documents(positives)
+    for i in np.random.default_rng(seed).choice(len(positives), size=8, replace=False):
+        top = search.search(positives[i], top_k=2)
+        if top[0][0] != positives[i] and top[0][1] - top[1][1] > 1e-6:
+            raise AssertionError(f"positive {i} not at rank 1: {top[0][1]}")
+    del search, model
+
+    # 2. the sharded-vocabulary step against the single-rank step on the card
+    # from the same weights on the whole batch, in the port's bf16 tolerances
+    with np.load(work / "batch.npz") as data:
+        batch = [torch.from_numpy(data[k]).cuda() for k in ("q", "p", "n", "w")]
+    steps_out = {}
+    lr = PAR_STEP_CONFIG["optimizer"]["lr"]
+    for loss, kwargs in PAR_LOSSES.items():
+        opt = build_optimizer(PAR_STEP_CONFIG)
+        state = create_train_state(_par_model(seed), opt, seed)
+        negatives = None if loss == "in_batch" else batch[2]
+        _, want = make_train_step(build_loss(loss, **kwargs), opt)(
+            state, batch[0], batch[1], negatives, batch[3])
+        want = {k: float(v) for k, v in want.items()}
+        params = params_to_jax(state.model)
+        with np.load(work / f"step_{loss}.npz") as data:
+            got_params = {k: data[k] for k in data.files}
+        errs = {}
+        for key in ("loss", "pos_similarity", "neg_similarity"):
+            errs[key] = max(abs(r[f"step_{loss}"]["metrics"][key] - want[key]) for r in ranks)
+            if errs[key] > BF16_LOSS_ATOL:
+                raise AssertionError(f"{loss} step {key}: {errs[key]} beyond {BF16_LOSS_ATOL}")
+        errs["grad_norm_rel"] = max(abs(r[f"step_{loss}"]["metrics"]["grad_norm"] -
+                                        want["grad_norm"]) for r in ranks) / want["grad_norm"]
+        if errs["grad_norm_rel"] > BF16_NORM_RTOL:
+            raise AssertionError(f"{loss} step grad_norm: {errs}")
+        for key, want_p in [("table", params["embedding"]["table"]),
+                            *params["query_tower"].items()]:
+            diff = np.abs(got_params[key] - want_p)
+            errs[f"{key}_max"], errs[f"{key}_mean"] = float(diff.max()), float(diff.mean())
+            if diff.max() > BF16_PARAMS_LR * lr or diff.mean() > BF16_PARAMS_MEAN_LR * lr:
+                raise AssertionError(f"{loss} step {key}: max {diff.max()}, mean {diff.mean()}")
+        for r in ranks:
+            row = r[f"step_{loss}"]
+            if row["launches"] != {"gather_rows": 3 - (loss == "in_batch"),
+                                   "scatter_add_rows": 3 - (loss == "in_batch")} or \
+                    row["local_table_rows"] != PAR_VOCAB // PAR_MESH["model"]:
+                raise AssertionError(f"rank {r['rank']} {loss} step: {row}")
+        steps_out[loss] = {"single_rank": want, "ranks": [r[f"step_{loss}"] for r in ranks],
+                           "errors": errs}
+        del state
+        torch.cuda.empty_cache()
+
+    # 3. the sharded index and 4. the round trip
+    for r in ranks:
+        ix, rt = r["index"], r["round_trip"]
+        if ix["launches"] != {"score_topk": PAR_SEARCHES + 1} or not all(ix["found_first"]) \
+                or ix["rows_per_shard"] != 250_000 or not rt["equal"] \
+                or rt["docs"] != PAR_INDEX_DOCS or not all(rt["found_first"]):
+            raise AssertionError(f"rank {r['rank']}: index {ix}, round trip {rt}")
+
+    # 5. a 1-rank NCCL group
+    start = time.perf_counter()
+    _run_ranks(_rank_entry, [(_nccl_rank, "nccl", work, seed)], work, 180)
+    nccl_s = time.perf_counter() - start
+    nccl = json.loads((work / "nccl.json").read_text())
+    if nccl["backend"] != "nccl" or nccl["metrics_sharded"] != nccl["metrics_unsharded"] or \
+            not nccl["lookup_equal"] or abs(nccl["in_batch"][0] - nccl["in_batch"][1]) > 1e-5:
+        raise AssertionError(f"1-rank NCCL group: {nccl}")
+
+    launches = {"gather_rows": ranks[0]["train"]["launches"]["gather_rows"],
+                "scatter_add_rows": ranks[0]["train"]["launches"]["scatter_add_rows"],
+                "score_topk": ranks[0]["index"]["launches"]["score_topk"]}
+    parallel = {
+        "mesh": PAR_MESH, "ranks": PAR_WORLD, "backend": ranks[0]["backend"],
+        "card": card["nvidia_smi"], "ranks_s": ranks_s, "nccl_s": nccl_s,
+        "train": {"steps": steps, "vocab": vocab, "batch_loss": batch_loss,
+                  "seconds": [r["train"]["seconds"] for r in ranks],
+                  "launches_per_rank": [r["train"]["launches"] for r in ranks]},
+        "sharded_vocab_step": {"vocab": PAR_VOCAB, "rows_per_shard": PAR_VOCAB // 2,
+                               "batch": WORD_BATCH,
+                               "tolerance": "loss and similarities within 2e-3, grad_norm "
+                                            "rtol 2e-2, params within 10 lr, mean below lr/4",
+                               **steps_out},
+        "index": {"docs": 1_000_000, "dim": 128, "shards": 4, "k": 10,
+                  "search_ms": [r["index"]["search_ms"] for r in ranks],
+                  "batch_collectives": [r["index"]["batch_collectives"] for r in ranks],
+                  "max_abs_err": max(r["index"]["max_abs_err"] for r in ranks),
+                  "near_tie_swaps": sum(r["index"]["near_tie_swaps"] for r in ranks)},
+        "shard_kernels": {"checks": shard_checks,
+                          "tolerance": "gather bit-equal; scatter-add as the embed phase's"},
+        "nccl": nccl, "launches": launches,
+    }
+    emit("parallel", **parallel)
+    return parallel
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1546,6 +2053,7 @@ def main() -> int:
     train = timed("train", train_phase, card, args.seed, embed_rows)
     transformer = timed("transformer", transformer_phase, card, args.seed)
     pretrained = timed("pretrained", pretrained_phase, card, args.seed)
+    parallel = timed("parallel", parallel_phase, card, args.seed)
     emit("seconds", **seconds, total=sum(seconds.values()))
     tf_launches = transformer["launches"]
     w2v_launches = pretrained["launches"]
@@ -1557,6 +2065,7 @@ def main() -> int:
         "launches": serve["score_topk_launches"],
         "launches_transformer": tf_launches["score_topk"],
         "launches_pretrained": w2v_launches["score_topk"],
+        "launches_parallel": parallel["launches"]["score_topk"],
         "max_abs_err": topk_row["max_abs_err"],
         "tolerance": "scores rtol 1e-5 atol 1e-6; indices equal but for near-ties "
                      "(f64 rescores within 1e-5 relative); integer case bit-equal",
@@ -1576,6 +2085,7 @@ def main() -> int:
         "launches": train["launches"]["scatter_add_rows"],
         "launches_transformer": tf_launches["scatter_add_rows"],
         "launches_pretrained": w2v_launches["scatter_add_rows"],
+        "launches_parallel": parallel["launches"]["scatter_add_rows"],
         "max_abs_err": embed_rows["scatter_add_rows"]["max_abs_err"],
         "tolerance": "|kernel - plain| <= 1e-5 * sum|g| of the row + 1e-6 (f32 sums in "
                      "another order); integer-valued g bit-equal",
@@ -1592,6 +2102,7 @@ def main() -> int:
         "launches": train["launches"]["gather_rows"],
         "launches_transformer": tf_launches["gather_rows"],
         "launches_pretrained": w2v_launches["gather_rows"],
+        "launches_parallel": parallel["launches"]["gather_rows"],
         "max_abs_err": embed_rows["gather_rows"]["max_abs_err"],
         "tolerance": "bit-equal",
         **{k: embed_rows["gather_rows"][k] for k in (

@@ -263,6 +263,36 @@ def test_gather_kernel_is_bit_equal(cuda, dim, table_dtype, out_dtype):
     assert torch.equal(got, gather_rows_reference(table, ids, out_dtype))
 
 
+def test_gather_plain_version_reads_ids_outside_the_table_as_zero_rows():
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(70, 8)).astype(np.float32)
+    ids = rng.integers(-140, 140, size=503).astype(np.int32)
+    ids[:4] = [-1, 70, 2**31 - 1, -2**31]
+    want = np.where(((ids >= 0) & (ids < 70))[:, None], table[np.clip(ids, 0, 69)], 0.0)
+    got = gather_rows(torch.from_numpy(table), torch.from_numpy(ids), torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype,out_dtype", [
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32)])
+def test_gather_kernel_reads_ids_outside_the_table_as_zero_rows(cuda, table_dtype, out_dtype):
+    """A shard of the row-sharded lookup gets the ids other shards own as
+    ids outside [0, V): negative ones, ones at V and past it."""
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.normal(size=(700, 64)).astype(np.float32)).to(cuda, table_dtype)
+    ids = rng.integers(-1400, 1400, size=5003).astype(np.int32)
+    ids[:4] = [-1, 700, 2**31 - 1, -2**31]
+    ids = torch.from_numpy(ids).to(cuda)
+    got = gather_rows(table, ids, out_dtype)
+    torch.cuda.synchronize()
+    outside = (ids < 0) | (ids >= 700)
+    assert int(outside.sum()) > 2500
+    assert torch.equal(got, gather_rows_reference(table, ids, out_dtype))
+    assert not bool(got[outside].any())
+    assert torch.equal(got[~outside], table[ids[~outside].long()].to(out_dtype))
+
+
 @pytest.mark.cuda
 def test_lookup_function_on_the_card_matches_the_cpu(cuda):
     """GatherScatterGrad's value and table gradient on the card against its

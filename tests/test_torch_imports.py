@@ -49,7 +49,11 @@ def import_errors():
 
 def test_the_walk_finds_the_packages():
     assert {"twotowers_tpu_torch", "twotowers_tpu_torch.data", "twotowers_tpu_torch.index.cli",
-            "twotowers_tpu_torch.scripts.train"} <= set(MODULES)
+            "twotowers_tpu_torch.scripts.train", "twotowers_tpu_torch.parallel",
+            "twotowers_tpu_torch.parallel.mesh", "twotowers_tpu_torch.parallel.collectives",
+            "twotowers_tpu_torch.parallel.embedding_shard", "twotowers_tpu_torch.parallel.sharding",
+            "twotowers_tpu_torch.parallel.train", "twotowers_tpu_torch.index.sharded"
+            } <= set(MODULES)
 
 
 @pytest.mark.parametrize("module", MODULES)

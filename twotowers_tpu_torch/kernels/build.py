@@ -5,19 +5,24 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 shared library with a plain C interface that ``ctypes`` loads. A source is
 rebuilt when it is newer than its library. Nothing is built at import, so
 the package imports on a machine without ``nvcc``; a build that cannot run
-or fails raises.
+or fails raises. The check for a stale library and the ``nvcc`` run hold a
+file lock (``fcntl.flock``) in the build directory, so the ranks of a
+process group that start together never build one library at once: the
+first builds it, the others find it fresh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -60,16 +65,34 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < sources()[name].stat().st_mtime
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the build directory's lock file, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Optional[Iterable[str]] = None) -> float:
     """Compile the named sources (default: all) that are stale, one ``nvcc``
-    per source, all started together. Returns the seconds it took."""
-    srcs = sources()
-    todo = [n for n in (srcs if names is None else names) if _stale(n)]
+    per source, all started together, under the build lock. Returns the
+    seconds it took (0 when nothing was stale)."""
     start = time.perf_counter()
-    if not todo:
-        return 0.0
+    with _build_lock():
+        srcs = sources()
+        todo = [n for n in (srcs if names is None else names) if _stale(n)]
+        if not todo:
+            return 0.0
+        _compile(srcs, todo)
+    return time.perf_counter() - start
+
+
+def _compile(srcs: Dict[str, Path], todo: List[str]) -> None:
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
@@ -86,14 +109,12 @@ def build(names: Optional[Iterable[str]] = None) -> float:
         os.replace(tmp, library_path(name))  # atomic: never load a partial file
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return time.perf_counter() - start
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if stale."""
     with _lock:
         if name not in _libs:
-            if _stale(name):
-                build([name])
+            build([name])
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]

@@ -26,8 +26,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def gather_rows_reference(table: torch.Tensor, ids: torch.Tensor,
                           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain PyTorch ``table[ids].to(out_dtype)``."""
-    return table[ids.long()].to(out_dtype)
+    """Plain PyTorch ``table[ids].to(out_dtype)``. Ids outside ``[0, V)``
+    read as a zero row, as in the kernel: the row-sharded lookup hands
+    each shard the ids that other shards own."""
+    ids = ids.long()
+    owned = (ids >= 0) & (ids < table.shape[0])
+    rows = table[torch.where(owned, ids, 0)].to(out_dtype)
+    return torch.where(owned[:, None], rows, 0.0)
 
 
 def check_args(table: torch.Tensor, ids: torch.Tensor, out_dtype: torch.dtype) -> None:

@@ -190,6 +190,14 @@ class Embedding(nn.Module):
             out = F.embedding(ids, self.table).to(dtype)
         else:
             out = GatherScatterGrad.apply(self.table, ids, dtype)
+        return self.add_positions(out, ids, dtype)
+
+    def add_positions(self, out: torch.Tensor, ids: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+        """``out`` plus the learned positions on the real tokens (the
+        ``positional`` kind); ``out`` unchanged for the other kinds. A
+        lookup that replaces the table's (the row-sharded one) adds them
+        here too."""
         if self.pos is not None:
             seq_len = ids.shape[-1]
             if seq_len > self.pos.shape[0]:

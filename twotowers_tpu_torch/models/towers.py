@@ -13,7 +13,7 @@ widen the pooled vector to f32, which is what JAX's type promotion of
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -168,14 +168,19 @@ class TwoTower(nn.Module):
             self.document_tower.reset_parameters(generator)
 
     def encode(self, ids: torch.Tensor, tower: str = "query",
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               embed_fn: Optional[Callable] = None) -> torch.Tensor:
         """(batch, seq_len) ids, PAD=0 -> (batch, output_dim) f32 unit vectors.
         ``generator`` draws the dropout masks of a tower in training mode.
         A sequence tower takes the (batch, seq_len, dim) embeddings and the
-        ids; a pooled tower takes their masked mean."""
+        ids; a pooled tower takes their masked mean. ``embed_fn(embedding,
+        ids, dtype)`` replaces the lookup (the parallel layer's row-sharded
+        one), as ``embed_fn`` does in the JAX package's ``encode``."""
         net = self.query_tower if tower == "query" or self.document_tower is None \
             else self.document_tower
-        embedded = self.embedding(ids, self.spec.compute_dtype)
+        dtype = self.spec.compute_dtype
+        embedded = self.embedding(ids, dtype) if embed_fn is None \
+            else embed_fn(self.embedding, ids, dtype)
         if is_sequence_arch(self.spec.tower.arch):
             return net(embedded, ids, generator)
         return net(masked_mean_pool(embedded, ids), generator)

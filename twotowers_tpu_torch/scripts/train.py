@@ -8,12 +8,15 @@ runs; optional process-parallel runs. Training runs on ``--device``, the
 card unless the caller asks for the CPU; with no card and no ``--device
 cpu`` the runner raises before any run. ``--parallel`` starts its workers
 with ``spawn``: a forked child of a process that has touched CUDA cannot
-use the card.
+use the card. Under torchrun (``RANK``, ``WORLD_SIZE`` ... in the
+environment) each process joins the process group first, for configs with
+``mesh:``; rank 0 alone writes the run directory and the group JSON.
 
 Usage:
     python -m twotowers_tpu_torch.scripts.train --config configs/char_tower.yml
     python -m twotowers_tpu_torch.scripts.train --configs a.yml b.yml --parallel 2
     python -m twotowers_tpu_torch.scripts.train --config_dir configs/sweep/ --device cpu
+    torchrun --nproc-per-node 4 -m twotowers_tpu_torch.scripts.train --config mesh.yml
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..parallel.mesh import initialize_distributed, is_writer
 from ..utils import get_logger, load_config, resolve_device, save_config, setup_logging
 
 logger = get_logger("cli.train")
@@ -65,14 +69,15 @@ def run_experiment(config_path: str, log_dir: str = "logs",
                    device: str = "cuda") -> Dict[str, Any]:
     """Run one training experiment on ``device``; returns a summary dict
     (success flag, dataset sizes, timings) and writes the log file and the
-    resolved-config snapshot."""
+    resolved-config snapshot (rank 0 alone, in a process group)."""
     name = Path(config_path).stem
     timestamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
     run_dir = Path(log_dir) / f"{name}_{timestamp}"
-    run_dir.mkdir(parents=True, exist_ok=True)
-
-    setup_logging(log_level=os.environ.get("TWOTOWER_LOG_LEVEL", "INFO"),
-                  log_file=str(run_dir / "train.log"))
+    writer = is_writer()
+    if writer:
+        run_dir.mkdir(parents=True, exist_ok=True)
+    setup_logging(log_level=os.environ.get("TWOTOWER_LOG_LEVEL", "INFO") if writer
+                  else "WARNING", log_file=str(run_dir / "train.log") if writer else None)
     summary: Dict[str, Any] = {
         "experiment": name,
         "config_path": str(config_path),
@@ -86,7 +91,8 @@ def run_experiment(config_path: str, log_dir: str = "logs",
         if overrides:
             config.update(overrides)
         config.setdefault("log_dir", str(run_dir))
-        save_config(config, str(run_dir / "resolved_config.yml"))
+        if writer:
+            save_config(config, str(run_dir / "resolved_config.yml"))
 
         from ..train import train_model
 
@@ -99,8 +105,9 @@ def run_experiment(config_path: str, log_dir: str = "logs",
         summary["success"] = False
         summary["error"] = str(exc)
     summary["duration_s"] = time.time() - start
-    with open(run_dir / "summary.json", "w") as f:
-        json.dump(summary, f, indent=2, default=str)
+    if writer:
+        with open(run_dir / "summary.json", "w") as f:
+            json.dump(summary, f, indent=2, default=str)
     return summary
 
 
@@ -132,6 +139,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not config_paths:
         parser.error("Provide --config, --configs or --config_dir")
     resolve_device(args.device)  # no card and no --device cpu: raise before any run
+    initialize_distributed(device_type=torch.device(args.device).type)  # under torchrun
 
     os.environ["TWOTOWER_LOG_LEVEL"] = args.log_level
     overrides: Dict[str, Any] = {}
@@ -141,9 +149,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         overrides["epochs"] = args.epochs
     if args.batch_size is not None:
         overrides["batch_size"] = args.batch_size
-
-    group_dir = Path(args.log_dir)
-    group_dir.mkdir(parents=True, exist_ok=True)
 
     jobs = [(p, args.log_dir, overrides, args.device) for p in config_paths]
     if args.parallel > 1 and len(config_paths) > 1:
@@ -157,11 +162,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         "total": len(summaries),
         "succeeded": sum(1 for s in summaries if s.get("success")),
     }
-    group_path = group_dir / f"experiment_group_{int(time.time())}.json"
-    with open(group_path, "w") as f:
-        json.dump(group_meta, f, indent=2, default=str)
-    print(f"{group_meta['succeeded']}/{group_meta['total']} experiments succeeded "
-          f"(details: {group_path})")
+    if is_writer():
+        group_dir = Path(args.log_dir)
+        group_dir.mkdir(parents=True, exist_ok=True)
+        group_path = group_dir / f"experiment_group_{int(time.time())}.json"
+        with open(group_path, "w") as f:
+            json.dump(group_meta, f, indent=2, default=str)
+        print(f"{group_meta['succeeded']}/{group_meta['total']} experiments succeeded "
+              f"(details: {group_path})")
     return 0 if group_meta["succeeded"] == group_meta["total"] else 1
 
 

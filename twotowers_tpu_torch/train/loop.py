@@ -10,21 +10,34 @@ samples. ``profile: {trace_dir: DIR}`` traces the first epoch that runs
 with ``torch.profiler`` (host activity, and the card's where the model is
 on it) and writes a Chrome trace (``*.pt.trace.json``) into ``DIR``.
 
-Not ported yet, and refused rather than ignored: ``mesh:`` (ROADMAP.md §1
-item 11) and ``huggingface.push_to_hub`` (§1 item 12).
+``mesh: {data: N, model: M, shard_vocab}`` trains over a process group of
+N * M ranks (``parallel/``): each rank takes its data rank's rows of every
+batch, the sharded train step sums the gradients (a pair loss takes the
+global batch's negatives, so ``global_negatives`` changes nothing, as in
+the JAX package, whose GSPMD step sees the global batch either way), and
+``val_data:`` takes the sharded eval step. Rank 0 alone logs metrics and
+writes checkpoints; every rank takes part in gathering the table shards and
+their moments, so a checkpoint holds the whole, unpadded table as a
+single process writes it, and loads with or without a mesh (``resume``
+under a mesh reads it on every rank and keeps the rank's rows).
+
+Not ported yet, and refused rather than ignored: ``huggingface.push_to_hub``
+(ROADMAP.md §1 item 12).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert import load_params, opt_state_from_jax, opt_state_to_jax, params_to_jax
 from ..data.batching import Batch, iterate_batches, num_batches, prefetch_to_device
+from ..parallel.mesh import is_writer
 from ..utils.logging import Timer, get_logger
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .metrics import MetricLogger
@@ -61,10 +74,13 @@ def train_epoch(
     epoch: int,
     seed: int,
     metric_logger: Optional[MetricLogger] = None,
+    batch_placer: Optional[Callable[[Batch], Batch]] = None,
 ) -> Tuple[TrainState, Dict[str, float]]:
     """Run one epoch; returns (state, epoch metrics).
 
     The epoch loss is the weighted-by-real-samples mean of batch losses.
+    ``batch_placer`` maps each host batch to the part this rank takes (a
+    mesh's data rows) before it is copied to the device.
     ``performance/batch_time`` is host wall-clock from a step's dispatch to
     the next step's dispatch, since the metrics are read one step late.
     """
@@ -100,9 +116,10 @@ def train_epoch(
             })
         return host
 
-    batch_iter = prefetch_to_device(
-        iterate_batches(arrays, batch_size, shuffle=True, seed=seed + epoch),
-        device=_device_of(state.model))
+    batches = iterate_batches(arrays, batch_size, shuffle=True, seed=seed + epoch)
+    if batch_placer is not None:
+        batches = map(batch_placer, batches)
+    batch_iter = prefetch_to_device(batches, device=_device_of(state.model))
     last_host = None
     for batch_idx, batch in enumerate(batch_iter):
         batch_start = time.time()
@@ -138,16 +155,19 @@ def train_epoch(
 
 
 def evaluate(eval_step, model, pipeline: Pipeline, batch_size: int,
-             dataset=None) -> Dict[str, float]:
-    """Validation pass: weighted-mean loss + similarity stats (no grad)."""
+             dataset=None, batch_placer: Optional[Callable[[Batch], Batch]] = None
+             ) -> Dict[str, float]:
+    """Validation pass: weighted-mean loss + similarity stats (no grad).
+    ``batch_placer`` as in ``train_epoch``."""
     dataset = dataset or pipeline.dataset
     arity = pipeline.loss_def.arity
     totals = {"loss": 0.0, "pos_similarity": 0.0, "neg_similarity": 0.0,
               "similarity_diff": 0.0}
     count = 0
-    batch_iter = prefetch_to_device(
-        iterate_batches(dataset.arrays(), batch_size, shuffle=False),
-        device=_device_of(model))
+    batches = iterate_batches(dataset.arrays(), batch_size, shuffle=False)
+    if batch_placer is not None:
+        batches = map(batch_placer, batches)
+    batch_iter = prefetch_to_device(batches, device=_device_of(model))
     for batch in batch_iter:
         metrics = eval_step(model, batch.queries, batch.positives,
                             _negatives_for_arity(batch, arity), batch.weights)
@@ -159,9 +179,6 @@ def evaluate(eval_step, model, pipeline: Pipeline, batch_size: int,
 
 
 def _refuse_unported(config: Dict[str, Any]) -> None:
-    if config.get("mesh"):
-        raise NotImplementedError(
-            "mesh: (sharded training) is not ported yet (ROADMAP.md §1 item 11)")
     if (config.get("huggingface", {}) or {}).get("push_to_hub"):
         raise NotImplementedError(
             "huggingface.push_to_hub is not ported yet (ROADMAP.md §1 item 12)")
@@ -182,10 +199,48 @@ def trace_to(trace_dir: str, device: torch.device):
     logger.info("Wrote profiler trace to %s", trace_dir)
 
 
+def _mesh_setup(mesh_cfg: Dict[str, Any], pipeline: Pipeline, seed: int,
+                device: torch.device):
+    """The sharded step, state, eval step and batch placer of a ``mesh:``
+    config, and a function that gives the whole (params, opt_state) trees
+    of the state (a collective)."""
+    from ..parallel import (
+        create_sharded_train_state, make_mesh, make_sharded_eval_step,
+        make_sharded_train_step)
+    from ..parallel.sharding import local_rows
+    from ..parallel.train import sharded_state_to_jax, shard_state_tree
+
+    mesh = make_mesh(data=mesh_cfg.get("data"), model=int(mesh_cfg.get("model", 1)),
+                     device_type=device.type)
+    shard_vocab = bool(mesh_cfg.get("shard_vocab", True))
+    train_step = make_sharded_train_step(pipeline.loss_def, pipeline.optimizer, mesh,
+                                         shard_vocab=shard_vocab)
+    state = create_sharded_train_state(pipeline.model, pipeline.optimizer, mesh,
+                                       shard_vocab=shard_vocab, seed=seed)
+    eval_step = make_sharded_eval_step(pipeline.loss_def, mesh, shard_vocab=shard_vocab)
+
+    def batch_placer(batch: Batch) -> Batch:
+        q, p, n, w = local_rows(mesh, batch.queries, batch.positives, batch.negatives,
+                                batch.weights)
+        return Batch(queries=q, positives=p, negatives=n, weights=w,
+                     num_real_hint=batch.num_real)
+
+    def trees(state: TrainState):
+        return sharded_state_to_jax(state, mesh, pipeline.spec.embedding.vocab_size,
+                                    shard_vocab)
+
+    def localize(tree: Dict[str, Any]) -> None:
+        shard_state_tree(tree["params"], tree["opt_state"], mesh, shard_vocab)
+
+    logger.info("Sharded training over mesh %s", dict(zip(mesh.mesh_dim_names, mesh.shape)))
+    return train_step, state, eval_step, batch_placer, trees, localize
+
+
 def train_model(config: Dict[str, Any], *, seed: int = 0,
                 device: Union[str, torch.device] = "cuda") -> Tuple[TrainState, Pipeline]:
     """Train a two-tower model from a config dict on ``device`` (the card
-    unless the caller asks for the CPU); returns (state, pipeline)."""
+    unless the caller asks for the CPU); returns (state, pipeline). Under
+    ``mesh:`` every rank of the process group calls it."""
     _refuse_unported(config)
     epochs = int(config.get("epochs", DEFAULT_EPOCHS))
     batch_size = int(config.get("batch_size", DEFAULT_BATCH_SIZE))
@@ -193,18 +248,30 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
     log_dir = config.get("log_dir", "logs")
 
     pipeline = build_pipeline(config, seed=seed, device=device)
-    train_step = make_train_step(pipeline.loss_def, pipeline.optimizer)
-    state = create_train_state(pipeline.model, pipeline.optimizer, seed)
+    mesh_cfg = config.get("mesh") or {}
+    batch_placer = None
+    if mesh_cfg:
+        train_step, state, eval_step, batch_placer, trees, localize = _mesh_setup(
+            mesh_cfg, pipeline, seed, _device_of(pipeline.model))
+    else:
+        train_step = make_train_step(pipeline.loss_def, pipeline.optimizer)
+        state = create_train_state(pipeline.model, pipeline.optimizer, seed)
+        eval_step = make_eval_step(pipeline.loss_def)
+
+        def trees(state: TrainState):
+            return params_to_jax(state.model), opt_state_to_jax(state.model, state.optimizer)
+
+        def localize(tree: Dict[str, Any]) -> None:
+            pass
+    writer = is_writer()
 
     # optional validation split: `val_data: path` enables per-epoch val metrics
     val_dataset = None
-    eval_step = None
     if config.get("val_data"):
         from ..data.triplets import TripletDataset
 
         val_dataset = TripletDataset(config["val_data"], pipeline.tokenizer,
                                      max_length=pipeline.max_length)
-        eval_step = make_eval_step(pipeline.loss_def)
 
     # optional torch.profiler trace of the first epoch's steps
     # (`profile: {trace_dir: ...}`)
@@ -217,6 +284,7 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
             resume_path = latest_checkpoint(checkpoint_dir)
         if resume_path:
             tree, meta = load_checkpoint(str(resume_path))
+            localize(tree)
             load_params(state.model, tree["params"])
             if tree["opt_state"] is not None:
                 opt_state_from_jax(tree["opt_state"], state.model, state.optimizer)
@@ -227,7 +295,8 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
             logger.info("No checkpoint found to resume from; starting fresh")
 
     best_loss = float("inf")
-    with MetricLogger(config, log_dir=log_dir) as metric_logger:
+    with (MetricLogger(config, log_dir=log_dir) if writer
+          else contextlib.nullcontext()) as metric_logger:
         for epoch in range(start_epoch, epochs + 1):
             logger.info("Epoch %d/%d", epoch, epochs)
             profiling = profile_dir and epoch == start_epoch
@@ -236,39 +305,48 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
                 state, epoch_metrics = train_epoch(
                     train_step, state, pipeline, batch_size,
                     epoch=epoch, seed=seed, metric_logger=metric_logger,
+                    batch_placer=batch_placer,
                 )
             if val_dataset is not None:
                 val_metrics = evaluate(eval_step, state.model, pipeline, batch_size,
-                                       dataset=val_dataset)
-                metric_logger.log({
-                    "epoch": epoch,
-                    **{f"val/{k}": v for k, v in val_metrics.items()},
-                })
+                                       dataset=val_dataset, batch_placer=batch_placer)
+                if writer:
+                    metric_logger.log({
+                        "epoch": epoch,
+                        **{f"val/{k}": v for k, v in val_metrics.items()},
+                    })
                 logger.info("  val loss=%.6f pos_sim=%.4f",
                             val_metrics["loss"], val_metrics["pos_similarity"])
             lr = (config.get("optimizer", {}) or {}).get(
                 "lr", config.get("learning_rate", 1e-3))
-            metric_logger.log({
-                "epoch": epoch,
-                "train/epoch_loss": epoch_metrics["loss"],
-                "train/epoch_time": epoch_metrics["time"],
-                "train/learning_rate": lr,
-                "train/batch_size": batch_size,
-                "performance/epoch_samples_per_second": epoch_metrics["samples_per_second"],
-            })
+            if writer:
+                metric_logger.log({
+                    "epoch": epoch,
+                    "train/epoch_loss": epoch_metrics["loss"],
+                    "train/epoch_time": epoch_metrics["time"],
+                    "train/learning_rate": lr,
+                    "train/batch_size": batch_size,
+                    "performance/epoch_samples_per_second":
+                        epoch_metrics["samples_per_second"],
+                })
+            # every rank reads the same global losses, so all take this
+            # branch together (the trees of a mesh are a collective)
             if epoch_metrics["loss"] < best_loss:
                 best_loss = epoch_metrics["loss"]
                 logger.info("New best model with loss: %.6f", best_loss)
-                save_checkpoint(
-                    {"params": params_to_jax(state.model),
-                     "opt_state": opt_state_to_jax(state.model, state.optimizer)},
-                    checkpoint_dir,
-                    tokenizer_state=pipeline.tokenizer.state_dict(),
-                    config=config,
-                    epoch=epoch,
-                    step=state.step,
-                    loss=best_loss,
-                )
+                params, opt_state = trees(state)
+                if writer:
+                    save_checkpoint(
+                        {"params": params, "opt_state": opt_state},
+                        checkpoint_dir,
+                        tokenizer_state=pipeline.tokenizer.state_dict(),
+                        config=config,
+                        epoch=epoch,
+                        step=state.step,
+                        loss=best_loss,
+                    )
+                if mesh_cfg:
+                    dist.barrier()  # the checkpoint is whole before any rank reads it
 
     logger.info("Training completed. Best loss: %.6f", best_loss)
     return state, pipeline

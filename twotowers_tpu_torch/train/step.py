@@ -63,18 +63,24 @@ def _encode_for_loss(
     negatives: Optional[torch.Tensor],
     weights: torch.Tensor,
     generator: Optional[torch.Generator] = None,
+    embed_fn: Optional[Callable] = None,
+    pair_loss: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Metrics]:
-    q = model.encode(queries, "query", generator)
-    p = model.encode(positives, "document", generator)
+    """The loss of one batch; ``embed_fn`` replaces the lookup and
+    ``pair_loss(q, docs, weights)`` a pair-arity loss (the parallel
+    layer's row-sharded lookup and global negatives)."""
+    q = model.encode(queries, "query", generator, embed_fn)
+    p = model.encode(positives, "document", generator, embed_fn)
     if loss_def.arity == "pair":
-        return loss_def.fn(q, p, weights)
+        return (pair_loss or loss_def.fn)(q, p, weights)
     if negatives is None:
         raise ValueError(f"Loss arity {loss_def.arity!r} requires negatives in the batch")
     if loss_def.arity == "multi_neg":
         batch, num_negs, seq = negatives.shape
-        n = model.encode(negatives.reshape(batch * num_negs, seq), "document", generator)
+        n = model.encode(negatives.reshape(batch * num_negs, seq), "document", generator,
+                         embed_fn)
         return loss_def.fn(q, p, n.reshape(batch, num_negs, -1), weights)
-    n = model.encode(negatives, "document", generator)
+    n = model.encode(negatives, "document", generator, embed_fn)
     return loss_def.fn(q, p, n, weights)
 
 
