@@ -74,9 +74,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               each search found first and held against the plain version;
               the gather at D=300 and kernel #1 at D=256 and D=50 checked
               and timed; the step's time and busy share.
+9. parallel -- 4 spawned ranks as a {data: 2, model: 2} mesh (gloo on one
+              card, NCCL on four): ``train_model`` under ``mesh:`` over
+              phase 6's data, the sharded step at vocab 102,400 against
+              the single-rank step, kernels #3 and #2 on each shard's own
+              ids, ``ShardedDocIndex`` over 1M x 128, then a 1-rank NCCL
+              group.
+10. hub_serve -- phase 6's ``best_model`` staged by
+              ``hub.save_model_for_hub`` into ``build/chip_smoke/hub/``
+              (layout and model card checked), then served as the app
+              builds its service (``serve.app.build_service``, the default
+              device) with ``MODEL_CHECKPOINT`` on the staged copy and
+              ``CHROMA_HOST`` on a closed localhost port: the Chroma backend
+              fails and the in-process store on the card takes over, which
+              is asserted. Phase 6's ~65k distinct positives are added and
+              8 of them searched: each comes first for itself, equals a
+              ``TwoTowerSearch`` of ``best_model`` within 1e-6 and agrees
+              with the plain version on the store's matrix; kernel #1 is
+              launched exactly 8 times.
 
 The launch counts are zeroed just before each main path (serve, train,
-transformer, pretrained) and read just after it. Then the kernel table, the nvidia-smi
+transformer, pretrained, parallel, hub_serve) and read just after it. Then the kernel table, the nvidia-smi
 line and, last, the result line. No path is cut in width; depth is cut as
 named above. Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2029,6 +2047,143 @@ def parallel_phase(card: dict, seed: int) -> dict:
     return parallel
 
 
+# ---- 10. hub_serve ------------------------------------------------------------
+
+HUB_SEARCHES, HUB_TOP_K, HUB_ADD_CHUNK = 8, 5, 4096
+
+
+def _closed_port() -> int:
+    """A localhost port nothing listens on: bound, then let go."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _same_results(got: list, want: list, atol: float = 1e-6) -> bool:
+    """Two (document, score) lists: scores within ``atol``, and the same
+    document at every place whose score ties with no other place's."""
+    if len(got) != len(want):
+        return False
+    scores = [s for _, s in want]
+    for (gd, gs), (wd, ws) in zip(got, want):
+        tied = sum(abs(ws - s) <= atol for s in scores) > 1
+        if abs(gs - ws) > atol or (gd != wd and not tied):
+            return False
+    return True
+
+
+def hub_serve_phase(card: dict, seed: int) -> dict:
+    """Phase 6's best_model staged by the Hub export, then served as the
+    app builds its service: MODEL_CHECKPOINT on the staged copy, and
+    CHROMA_HOST on a closed localhost port, so the Chroma backend fails
+    (no chromadb, or no server) and the in-process store on the card takes
+    over, as in the JAX package."""
+    import os
+
+    from twotowers_tpu_torch.hub import save_model_for_hub
+    from twotowers_tpu_torch.index.two_tower import TwoTowerSearch
+    from twotowers_tpu_torch.kernels import gather, scatter_add, topk
+    from twotowers_tpu_torch.serve.app import build_service
+    from twotowers_tpu_torch.serve.store import VectorCollection
+    from twotowers_tpu_torch.train import load_trained_model
+
+    best = ROOT / "build" / "chip_smoke" / "train" / "ckpt" / "best_model"  # phase 6's
+    work = ROOT / "build" / "chip_smoke" / "hub"
+    shutil.rmtree(work, ignore_errors=True)
+    phase_start = time.perf_counter()
+
+    # 1. stage the model as the Hub upload would carry it
+    staged = Path(save_model_for_hub(str(best), str(work), repo_id="chip-smoke/word-vocab"))
+    files = {p.relative_to(staged).as_posix() for p in staged.rglob("*") if p.is_file()}
+    want_files = {"README.md", "checkpoint/params.npz", "checkpoint/opt_state.npz",
+                  "checkpoint/meta.json"}
+    card_text = (staged / "README.md").read_text()
+    if files != want_files or "library_name: twotowers_tpu_torch" not in card_text:
+        raise AssertionError(f"staged layout {sorted(files)}; card {card_text[:200]!r}")
+
+    # 2. the service as the app builds it, on the default device
+    texts = list(dict.fromkeys(_positives(ROOT / "build" / "chip_smoke" / "train"
+                                          / "triplets.tsv")))
+    env = {"MODEL_CHECKPOINT": str(staged / "checkpoint"), "CHROMA_HOST": "127.0.0.1",
+           "CHROMA_PORT": str(_closed_port()), "ANONYMIZED_TELEMETRY": "False"}
+    saved_env = {key: os.environ.get(key) for key in (*env, "MODEL_REPO_URL")}
+    os.environ.update(env)
+    os.environ.pop("MODEL_REPO_URL", None)
+    try:
+        topk.LAUNCHES = 0  # the main path starts here
+        gather.LAUNCHES = 0
+        scatter_add.LAUNCHES = 0
+        start = time.perf_counter()
+        service = build_service()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    store, runtime = service.collection, service.model
+    if type(store) is not VectorCollection or runtime is None:
+        raise AssertionError(f"no Chroma fallback: collection {type(store)}, model {runtime}")
+    on_card = {"runtime": runtime.device.type, "store": store.device.type,
+               "model": next(runtime._search.model.parameters()).device.type}
+
+    # 3. serve: add the texts, then 8 searches of texts in the store
+    start = time.perf_counter()
+    for i in range(0, len(texts), HUB_ADD_CHUNK):
+        chunk = texts[i:i + HUB_ADD_CHUNK]
+        service.add(chunk, ids=[f"p{j}" for j in range(i, i + len(chunk))])
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - start
+    rng = np.random.default_rng(seed + 10)
+    picks = [int(i) for i in rng.choice(len(texts), size=HUB_SEARCHES, replace=False)]
+    before = topk.LAUNCHES
+    search_ms, served = [], []
+    for i in picks:
+        start = time.perf_counter()
+        result = service.search(texts[i], top_k=HUB_TOP_K)["results"]
+        search_ms.append((time.perf_counter() - start) * 1e3)
+        served.append([(r["document"], 1.0 - r["distance"]) for r in result])
+    search_launches = topk.LAUNCHES - before
+    launches = {"score_topk": topk.LAUNCHES, "gather_rows": gather.LAUNCHES,
+                "scatter_add_rows": scatter_add.LAUNCHES}  # the main path ends here
+    on_card["matrix"] = store._device_unit.device.type
+    if set(on_card.values()) != {"cuda"} or store.count() != len(texts):
+        raise AssertionError(f"devices {on_card}, {store.count()} of {len(texts)} texts")
+    if search_launches != HUB_SEARCHES or launches["score_topk"] != HUB_SEARCHES \
+            or launches["gather_rows"] == 0 or launches["scatter_add_rows"]:
+        raise AssertionError(f"launches {launches}, {search_launches} across the searches")
+
+    # each search: first for itself, best_model's own search, the plain version
+    model, spec, tokenizer, _ = load_trained_model(str(best))
+    direct = TwoTowerSearch(model, spec, tokenizer, max_length=WORD_SEQ, encode_batch_size=4096)
+    direct.index_documents(texts)
+    position = {text: i for i, text in enumerate(texts)}
+    docs, n_docs = store._device_index()
+    errs = []
+    for i, results in zip(picks, served):
+        if not _found_first(results, texts[i]):
+            raise AssertionError(f"text {i} not first for itself: {results[:2]}")
+        if not _same_results(results, direct.search(texts[i], top_k=HUB_TOP_K)):
+            raise AssertionError(f"text {i}: the service and best_model's search differ")
+        query = store._unit_queries(runtime.encode_device([texts[i]], "query"))
+        errs.append(_against_plain(docs, n_docs, query, results, position)[0])
+
+    hub = {"card": card["nvidia_smi"], "staged": sorted(files), "chroma_fallback": True,
+           "devices": on_card, "docs": len(texts), "load_s": load_s,
+           "add_docs_per_s": len(texts) / add_s, "search_ms": search_ms,
+           "search_p50_ms": statistics.median(search_ms), "search_max_ms": max(search_ms),
+           "launches": launches, "search_launches": search_launches,
+           "max_abs_err": max(errs), "tolerance": "best_model's search within 1e-6; the "
+                                                  "plain version as phase 3's",
+           "seconds": time.perf_counter() - phase_start}
+    emit("hub_serve", **hub)
+    return hub
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2054,6 +2209,7 @@ def main() -> int:
     transformer = timed("transformer", transformer_phase, card, args.seed)
     pretrained = timed("pretrained", pretrained_phase, card, args.seed)
     parallel = timed("parallel", parallel_phase, card, args.seed)
+    hub = timed("hub_serve", hub_serve_phase, card, args.seed)
     emit("seconds", **seconds, total=sum(seconds.values()))
     tf_launches = transformer["launches"]
     w2v_launches = pretrained["launches"]
@@ -2066,6 +2222,7 @@ def main() -> int:
         "launches_transformer": tf_launches["score_topk"],
         "launches_pretrained": w2v_launches["score_topk"],
         "launches_parallel": parallel["launches"]["score_topk"],
+        "launches_hub": hub["launches"]["score_topk"],
         "max_abs_err": topk_row["max_abs_err"],
         "tolerance": "scores rtol 1e-5 atol 1e-6; indices equal but for near-ties "
                      "(f64 rescores within 1e-5 relative); integer case bit-equal",
@@ -2086,6 +2243,7 @@ def main() -> int:
         "launches_transformer": tf_launches["scatter_add_rows"],
         "launches_pretrained": w2v_launches["scatter_add_rows"],
         "launches_parallel": parallel["launches"]["scatter_add_rows"],
+        "launches_hub": hub["launches"]["scatter_add_rows"],
         "max_abs_err": embed_rows["scatter_add_rows"]["max_abs_err"],
         "tolerance": "|kernel - plain| <= 1e-5 * sum|g| of the row + 1e-6 (f32 sums in "
                      "another order); integer-valued g bit-equal",
@@ -2103,6 +2261,7 @@ def main() -> int:
         "launches_transformer": tf_launches["gather_rows"],
         "launches_pretrained": w2v_launches["gather_rows"],
         "launches_parallel": parallel["launches"]["gather_rows"],
+        "launches_hub": hub["launches"]["gather_rows"],
         "max_abs_err": embed_rows["gather_rows"]["max_abs_err"],
         "tolerance": "bit-equal",
         **{k: embed_rows["gather_rows"][k] for k in (

@@ -2,13 +2,17 @@
 
 The card's machine has no JAX and no pandas. So each module outside
 ``data/factory/`` (the one package that uses pandas, and only on the host)
-must import in a process where ``import pandas`` and ``import jax`` fail,
-and importing ``twotowers_tpu_torch`` or its ``data`` package must not load
-the factory. One child process imports them all; each module is one case.
+must import in a process where ``import pandas``, ``import jax``, ``import
+twotowers_tpu`` and ``import bridge`` fail, and importing
+``twotowers_tpu_torch`` or its ``data`` package must not load the factory.
+One child process imports them all; each module is one case. No source
+file of the package, the factory's included, names the JAX package or the
+repo's ``bridge/`` in an import.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -25,7 +29,7 @@ MODULES = sorted(
 
 _CHILD = """
 import importlib, json, sys, traceback
-for blocked in ("pandas", "jax", "jaxlib", "twotowers_tpu"):
+for blocked in ("pandas", "jax", "jaxlib", "twotowers_tpu", "bridge", "orbax_to_torch"):
     sys.modules[blocked] = None  # any import of these raises ImportError
 errors = {}
 for name in json.loads(sys.argv[1]):
@@ -52,7 +56,15 @@ def test_the_walk_finds_the_packages():
             "twotowers_tpu_torch.scripts.train", "twotowers_tpu_torch.parallel",
             "twotowers_tpu_torch.parallel.mesh", "twotowers_tpu_torch.parallel.collectives",
             "twotowers_tpu_torch.parallel.embedding_shard", "twotowers_tpu_torch.parallel.sharding",
-            "twotowers_tpu_torch.parallel.train", "twotowers_tpu_torch.index.sharded"
+            "twotowers_tpu_torch.parallel.train", "twotowers_tpu_torch.index.sharded",
+            "twotowers_tpu_torch.hub", "twotowers_tpu_torch.hub.huggingface",
+            "twotowers_tpu_torch.hub.cli", "twotowers_tpu_torch.reports",
+            "twotowers_tpu_torch.reports.report_utils", "twotowers_tpu_torch.reports.blocks",
+            "twotowers_tpu_torch.reports.single_report",
+            "twotowers_tpu_torch.reports.compare_report", "twotowers_tpu_torch.reports.cli",
+            "twotowers_tpu_torch.serve.chroma", "twotowers_tpu_torch.serve.app",
+            "twotowers_tpu_torch.scripts.train_with_msmarco",
+            "twotowers_tpu_torch.scripts.prepare_ms_marco",
             } <= set(MODULES)
 
 
@@ -63,3 +75,14 @@ def test_imports_without_jax_or_pandas(import_errors, module):
 
 def test_no_module_outside_the_factory_loads_it(import_errors):
     assert import_errors["<factory loaded>"] is None
+
+
+_FOREIGN_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax\b|jaxlib\b|twotowers_tpu\b(?!_torch)|bridge\b|orbax)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_the_jax_package_or_the_bridge(path):
+    found = _FOREIGN_IMPORT.findall(path.read_text())
+    assert not found, found

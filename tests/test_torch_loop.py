@@ -132,14 +132,6 @@ def test_train_model_checkpoints_resumes_and_serves(tmp_path, np_rng):
         assert top[0][0] == text or top[0][1] == pytest.approx(top[1][1])
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("huggingface", {"push_to_hub": True}, "§1 item 12"),
-])
-def test_unported_config_keys_name_roadmap_item(tmp_path, key, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        train_model({key: value, "data": str(tmp_path / "absent.tsv")}, device="cpu")
-
-
 def test_train_model_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

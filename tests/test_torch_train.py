@@ -55,8 +55,7 @@ VOCAB, BATCH, SEQ, EMB, HID = 640, 8, 12, 16, 32
 LR = 1e-3
 
 
-@pytest.fixture
-def jax_tpu_route(monkeypatch):
+def route_jax_lookup_through_kernel(monkeypatch):
     """Send JAX's word-scale lookup through the scatter-add kernel, as on
     the TPU (interpret mode, tile 128: the tile changes no sum)."""
     kernel = jax_psa.scatter_add_rows
@@ -65,6 +64,11 @@ def jax_tpu_route(monkeypatch):
                             table, ids, table.dtype if dtype is None else dtype))
     monkeypatch.setattr(jax_psa, "scatter_add_rows",
                         lambda g, ids, vocab: kernel(g, ids, vocab, tile_n=128, interpret=True))
+
+
+@pytest.fixture
+def jax_tpu_route(monkeypatch):
+    route_jax_lookup_through_kernel(monkeypatch)
 
 
 def _specs(tied, bf16, arch="mean", hidden=HID):

@@ -1,14 +1,20 @@
-"""FastAPI inference service: /embed, /search, /add, /health.
+"""FastAPI inference service: /, /embed, /search, /add, /health.
 
 The counterpart of ``twotowers_tpu/serve/app.py``: the model is loaded at
-startup from a local checkpoint, the four routes run through
-``RetrievalService``, and the vector backend is the in-process
-``VectorCollection`` on the card. The HTTP layer needs ``fastapi``; without
-it ``create_app`` raises, and ``ModelRuntime`` and the service still work.
+startup from a local checkpoint or, failing that, from a Hub repo; the
+four routes run through ``RetrievalService``; ``/`` serves the search page
+(``serve/static/index.html``). The vector backend is the in-process
+``VectorCollection`` on the card, or a ChromaDB server when ``CHROMA_HOST``
+is set and reachable (``serve/chroma.py``). The HTTP layer needs
+``fastapi``; without it ``create_app`` raises, while ``build_service`` (the
+service as the app builds it) and ``index_page`` (the page's text) still
+work.
 
 Environment:
-    MODEL_CHECKPOINT  local checkpoint dir (``train.checkpoint.save_params``)
+    MODEL_CHECKPOINT  local checkpoint dir (preferred, offline)
+    MODEL_REPO_URL    HF Hub repo id (fallback, needs the network)
     PORT              bind port (default 8080)
+    CHROMA_HOST/PORT  optional external ChromaDB
 
 Run:  python -m twotowers_tpu_torch.serve.app
 """
@@ -16,6 +22,7 @@ Run:  python -m twotowers_tpu_torch.serve.app
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -64,13 +71,43 @@ class ModelRuntime:
         return self._search._encode_texts_device(texts, tower)
 
 
+INDEX_PAGE = Path(__file__).parent / "static" / "index.html"
+
+
 def _load_runtime(device: Union[str, torch.device] = "cuda") -> Optional[ModelRuntime]:
     checkpoint = os.environ.get("MODEL_CHECKPOINT")
     if checkpoint and os.path.exists(checkpoint):
         logger.info("Loading model from local checkpoint %s", checkpoint)
         return ModelRuntime(checkpoint, device=device)
-    logger.warning("No model available (set MODEL_CHECKPOINT)")
+    repo = os.environ.get("MODEL_REPO_URL")
+    if repo:
+        try:
+            from ..hub.huggingface import load_model_from_hub
+
+            logger.info("Downloading model from the Hub: %s", repo)
+            return ModelRuntime(load_model_from_hub(repo), device=device)
+        except Exception as exc:
+            logger.error("Hub model load failed: %s", exc)
+    logger.warning("No model available (set MODEL_CHECKPOINT or MODEL_REPO_URL)")
     return None
+
+
+def build_service(device: Union[str, torch.device] = "cuda",
+                  load_model: bool = True) -> RetrievalService:
+    """The service as the app builds it: the collection ``collection_from_env``
+    picks (Chroma when ``CHROMA_HOST`` is set and reachable, else the
+    in-process store on ``device``) and, with ``load_model``, the runtime
+    ``_load_runtime`` finds (the app loads it at startup instead)."""
+    from .chroma import collection_from_env
+
+    collection = collection_from_env("documents", device=device)
+    model = _load_runtime(device) if load_model else None
+    return RetrievalService(model=model, collection=collection, device=device)
+
+
+def index_page() -> str:
+    """The search page ``/`` serves."""
+    return INDEX_PAGE.read_text()
 
 
 def create_app(device: Union[str, torch.device] = "cuda"):
@@ -80,7 +117,7 @@ def create_app(device: Union[str, torch.device] = "cuda"):
             "fastapi is not installed; `pip install fastapi uvicorn` to serve"
         )
 
-    service = RetrievalService(model=None, device=device)
+    service = build_service(device, load_model=False)
 
     class EmbedRequest(BaseModel):
         texts: List[str]
@@ -118,6 +155,12 @@ def create_app(device: Union[str, torch.device] = "cuda"):
     def add(request: AddRequest):
         return run(service.add, request.documents, request.ids,
                    request.metadatas)
+
+    @app.get("/")
+    def root():
+        from fastapi.responses import HTMLResponse
+
+        return HTMLResponse(index_page())
 
     @app.post("/search")
     def search(request: SearchRequest):

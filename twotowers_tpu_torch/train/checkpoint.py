@@ -10,7 +10,9 @@ param pytree's leaves and optax's optimizer state (``count``, ``mu/...``,
 ``nu/...``; see ``convert.py``) under their ``/``-joined paths, in the JAX
 layout, in place of the JAX package's orbax directory. A list in the tree
 (the transformer's ``layers``) is stored item by item under its index
-(``query_tower/layers/0/q_w``) and read back as a list.
+(``query_tower/layers/0/q_w``) and read back as a list. A directory the
+JAX package wrote (an orbax ``state/`` and no ``params.npz``) is converted
+by the repo's ``bridge/orbax_to_torch.py``; the loaders here say so.
 """
 
 from __future__ import annotations
@@ -73,6 +75,17 @@ def _timestamp() -> str:
     return datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
 
 
+def save_arrays(checkpoint_path: Union[str, Path], state_tree: Dict[str, Any]) -> None:
+    """Write ``state_tree["params"]`` to ``params.npz`` and its
+    ``opt_state``, when there is one, to ``opt_state.npz`` in
+    ``checkpoint_path`` (numpy trees in the JAX layout)."""
+    path = Path(checkpoint_path)
+    path.mkdir(parents=True, exist_ok=True)
+    np.savez(path / PARAMS_FILE, **_flatten(state_tree["params"]))
+    if state_tree.get("opt_state") is not None:
+        np.savez(path / OPT_STATE_FILE, **_flatten(state_tree["opt_state"]))
+
+
 def save_params(
     checkpoint_path: str,
     params_np: Dict[str, Any],
@@ -89,8 +102,7 @@ def save_params(
     (``convert.params_to_jax`` gives it for a TwoTower).
     """
     path = Path(checkpoint_path)
-    path.mkdir(parents=True, exist_ok=True)
-    np.savez(path / PARAMS_FILE, **_flatten(params_np))
+    save_arrays(path, {"params": params_np})
     _write_meta(path, tokenizer_state, config, epoch=epoch, step=step, loss=loss,
                 timestamp=_timestamp())
     logger.info("Saved parameters to %s", path)
@@ -121,10 +133,7 @@ def save_checkpoint(
     root.mkdir(parents=True, exist_ok=True)
     timestamp = _timestamp()
     path = root / (checkpoint_name or f"two_tower_{timestamp}_epoch{epoch}")
-    path.mkdir(parents=True, exist_ok=True)
-    np.savez(path / PARAMS_FILE, **_flatten(state_tree["params"]))
-    if state_tree.get("opt_state") is not None:
-        np.savez(path / OPT_STATE_FILE, **_flatten(state_tree["opt_state"]))
+    save_arrays(path, state_tree)
     _write_meta(path, tokenizer_state, config, epoch=epoch, step=step, loss=loss,
                 timestamp=timestamp)
     logger.info("Saved checkpoint to %s", path)
@@ -138,6 +147,11 @@ def save_checkpoint(
 
 
 def _read_npz(path: Path) -> Dict[str, Any]:
+    if not path.exists() and (path.parent / "state").is_dir():
+        raise FileNotFoundError(
+            f"{path.parent} is a checkpoint of the JAX package (an orbax state/, no "
+            f"{PARAMS_FILE}); convert it first: python bridge/orbax_to_torch.py "
+            f"{path.parent} DST")
     with np.load(path) as data:
         return _unflatten({key: data[key] for key in data.files})
 

@@ -21,8 +21,10 @@ their moments, so a checkpoint holds the whole, unpadded table as a
 single process writes it, and loads with or without a mesh (``resume``
 under a mesh reads it on every rank and keeps the rank's rows).
 
-Not ported yet, and refused rather than ignored: ``huggingface.push_to_hub``
-(ROADMAP.md §1 item 12).
+``huggingface: {push_to_hub: true, repo_id, private}`` stages the best
+model and uploads it after training (``hub.save_and_upload``, rank 0 only);
+a failed upload is logged and training still returns, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -178,12 +180,6 @@ def evaluate(eval_step, model, pipeline: Pipeline, batch_size: int,
     return {k: (v / count if count else float("inf")) for k, v in totals.items()}
 
 
-def _refuse_unported(config: Dict[str, Any]) -> None:
-    if (config.get("huggingface", {}) or {}).get("push_to_hub"):
-        raise NotImplementedError(
-            "huggingface.push_to_hub is not ported yet (ROADMAP.md §1 item 12)")
-
-
 @contextlib.contextmanager
 def trace_to(trace_dir: str, device: torch.device):
     """Profile the body with ``torch.profiler`` (CPU activity, plus CUDA on
@@ -241,7 +237,6 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
     """Train a two-tower model from a config dict on ``device`` (the card
     unless the caller asks for the CPU); returns (state, pipeline). Under
     ``mesh:`` every rank of the process group calls it."""
-    _refuse_unported(config)
     epochs = int(config.get("epochs", DEFAULT_EPOCHS))
     batch_size = int(config.get("batch_size", DEFAULT_BATCH_SIZE))
     checkpoint_dir = config.get("checkpoint_dir", "checkpoints")
@@ -295,6 +290,7 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
             logger.info("No checkpoint found to resume from; starting fresh")
 
     best_loss = float("inf")
+    best_path = None
     with (MetricLogger(config, log_dir=log_dir) if writer
           else contextlib.nullcontext()) as metric_logger:
         for epoch in range(start_epoch, epochs + 1):
@@ -336,7 +332,7 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
                 logger.info("New best model with loss: %.6f", best_loss)
                 params, opt_state = trees(state)
                 if writer:
-                    save_checkpoint(
+                    best_path = save_checkpoint(
                         {"params": params, "opt_state": opt_state},
                         checkpoint_dir,
                         tokenizer_state=pipeline.tokenizer.state_dict(),
@@ -349,4 +345,17 @@ def train_model(config: Dict[str, Any], *, seed: int = 0,
                     dist.barrier()  # the checkpoint is whole before any rank reads it
 
     logger.info("Training completed. Best loss: %.6f", best_loss)
+
+    hf_config = config.get("huggingface", {}) or {}
+    if hf_config.get("push_to_hub") and best_path:
+        from ..hub.huggingface import save_and_upload
+
+        try:
+            save_and_upload(
+                checkpoint_path=best_path,
+                repo_id=hf_config.get("repo_id", "mlx7-two-tower"),
+                private=bool(hf_config.get("private", False)),
+            )
+        except Exception as exc:  # network or auth: logged, as the JAX package does
+            logger.error("Failed to push model to the Hub: %s", exc)
     return state, pipeline
