@@ -13,9 +13,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               block (shared-memory bytes and blocks per SM at k=10 and
               k=256), then the kernel against its plain PyTorch version on
               the card at the serve path's shapes and at edge cases (Q=1
-              twins of the batch's), then timed beside the plain version, a
-              library yardstick and its bound, with pass 1 and pass 2
-              apart at Q=1.
+              twins of the batch's), then pass 2 alone (``merge_topk_cuda``,
+              its blocks per level) bit-equal to the plain merge on the
+              real pass-1 lists of Q=1, k=256 (f32, bf16) and on crafted
+              lists at S = 1, 33, 1024, then timed beside the plain
+              version, a library yardstick and its bound, with pass 1 and
+              each level of pass 2 apart at Q=1 and at k=256.
 4. serve   -- the default config (char tokenizer, max_len 64, lookup
               embedding 64, mean tower 128, f32) at full width with random
               weights from the seed, over ``--n-docs`` synthetic texts:
@@ -234,9 +237,48 @@ def topk_bound(n, dim, q, k, dtype):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def crafted_lists(q, s, k, kind, gen):
+    """(Q, S, k) candidate lists as pass 1 leaves them, on ``gen``'s
+    device: each sorted best first, unique indices within a query, a
+    random number of real pairs a list (list 0 full, so k are real) and the
+    rest (-inf, NO_INDEX). ``kind`` picks the values: random normal, all
+    tied, integers in [-2, 2], or -0.0 and +0.0 mixed with -1."""
+    from twotowers_tpu_torch.kernels.topk import NO_INDEX, merge_topk_reference
+
+    dev = gen.device
+    n = s * k
+    index = torch.argsort(torch.rand(q, 2 * n, generator=gen, device=dev), dim=1)[:, :n]
+    if kind == "random":
+        values = torch.randn(q, n, generator=gen, device=dev)
+    elif kind == "tied":
+        values = torch.ones(q, n, device=dev)
+    elif kind == "integer":
+        values = torch.randint(-2, 3, (q, n), generator=gen, device=dev).float()
+    elif kind == "signed-zero":  # -0.0 or -1, then half the zeros made +0.0
+        values = -(torch.rand(q, n, generator=gen, device=dev) < 0.25).float()
+        positive = torch.rand(q, n, generator=gen, device=dev) < 0.5
+        values = values.masked_fill((values == 0) & positive, 0.0)
+        values[:, 0] = -0.0  # list 0 is full: one -0.0 at least is real
+    else:
+        raise KeyError(kind)
+    real = torch.randint(0, k + 1, (q, s, 1), generator=gen, device=dev)
+    real[:, 0] = k
+    pad = torch.arange(k, device=dev) >= real
+    values = values.view(q, s, k).masked_fill(pad, -math.inf)
+    index = index.int().view(q, s, k).masked_fill(pad, NO_INDEX)
+    sv, si = merge_topk_reference(values.view(q * s, 1, k), index.view(q * s, 1, k))
+    return sv.view(q, s, k).contiguous(), si.view(q, s, k).contiguous()
+
+
+def pass2_ms(by_kernel: dict) -> float:
+    """Device ms of pass 2 (every level) in a ``device_ms_by_kernel`` row."""
+    return sum(ms for name, ms in by_kernel.items() if "score_topk_merge" in name)
+
+
 def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     from twotowers_tpu_torch.kernels.topk import (
-        score_topk_cuda, stream_occupancy, tiles_occupancy)
+        merge_occupancy, merge_plan, merge_topk_cuda, merge_topk_reference,
+        score_topk_candidates, score_topk_cuda, stream_occupancy, tiles_occupancy)
     from twotowers_tpu_torch.ops.topk_score import score_topk_reference
 
     dev = torch.device("cuda")
@@ -320,13 +362,52 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     check("integer-valued q1", ints, qints[:1], 32, exact=True)
     check("integer-valued q4 bf16", ints.bfloat16(), qints[:4], 256, exact=True)
 
+    # pass 2 alone: the kernel's merge of the same lists as the plain
+    # merge's, bit for bit; level 1 writes in place, so it gets a copy
+    def merge_check(case, cand_v, cand_i, final=None):
+        want = merge_topk_reference(cand_v, cand_i)
+        got = merge_topk_cuda(cand_v.clone(), cand_i.clone())
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"merge {case}: not bit-equal to the plain merge")
+        if final is not None and not (torch.equal(got[0], final[0])
+                                      and torch.equal(got[1], final[1])):
+            raise AssertionError(f"merge {case}: not score_topk_cuda's result")
+        q, s, k = cand_v.shape
+        group, levels, smem = merge_plan(s, k)
+        emit("kernels", case=f"merge {case}", q=q, s=s, k=k, group=group, levels=levels,
+             smem_bytes=smem, max_abs_err=float((got[0] - want[0]).abs().max()),
+             bit_equal=True)
+
+    merge_blocks = {}
+    for dtype, d in ((torch.float32, docs), (torch.bfloat16, docs_bf16)):
+        cands = score_topk_candidates(d, queries[1], 256)
+        merge_check(f"pass-1 lists q1 k256 {dtype}", *cands,
+                    final=score_topk_cuda(d, queries[1], 256))
+        group, levels, _ = merge_plan(cands[0].shape[1], 256)
+        groups = -(-cands[0].shape[1] // group)
+        merge_blocks[str(dtype)] = {
+            "n_splits": cands[0].shape[1], "group": group, "levels": levels,
+            "level1": merge_occupancy(dev, False, group, 256) if levels == 2 else None,
+            "last": merge_occupancy(dev, True, groups if levels == 2 else group, 256)}
+        emit("kernels", case="pass-2 blocks q1 k256", dtype=str(dtype), **merge_blocks[str(dtype)])
+        if any(b and b["local_bytes"] for b in (merge_blocks[str(dtype)]["level1"],
+                                                 merge_blocks[str(dtype)]["last"])):
+            raise AssertionError(f"pass 2 spills: {merge_blocks[str(dtype)]}")
+    merge_gen = torch.Generator(device=dev).manual_seed(seed + 1)  # leaves `gen` as it was
+    for s_, k_, kind in ((1, 256, "random"), (33, 256, "random"), (1024, 256, "random"),
+                         (1024, 10, "random"), (1024, 256, "tied")):
+        merge_check(f"crafted s{s_} k{k_} {kind}", *crafted_lists(4, s_, k_, kind, merge_gen))
+
     timings = {}
     queries[4] = unit(4, 128)
     for (q, dtype, k) in [(1, torch.float32, 10), (4, torch.float32, 10),
                           (32, torch.float32, 10), (256, torch.float32, 10),
                           (1, torch.bfloat16, 10), (4, torch.bfloat16, 10),
                           (32, torch.bfloat16, 10), (256, torch.bfloat16, 10),
-                          (1, torch.float32, 256), (1, torch.bfloat16, 256)]:
+                          (1, torch.float32, 256), (1, torch.bfloat16, 256),
+                          (32, torch.float32, 256), (256, torch.float32, 256)]:
         d = docs if dtype == torch.float32 else docs_bf16
         qs = queries[q]
         bound, bound_by = topk_bound(n_docs, 128, q, k, dtype)
@@ -336,13 +417,17 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
             "library_ms": cuda_ms(lambda: torch.topk(qs.to(dtype) @ d.T, k)),
             "bound_ms": bound, "bound_by": bound_by,
         }
-        if q == 1:  # the single search: pass 1 and pass 2 apart
+        if q == 1 or k == 256:  # pass 1 and each level of pass 2 apart
             row["device_ms_by_kernel"] = device_ms_by_kernel(lambda: score_topk_cuda(d, qs, k))
+            row["pass2_ms"] = pass2_ms(row["device_ms_by_kernel"])
         timings[(q, dtype, k)] = row
         emit("kernels", case=f"time q{q} {dtype} k{k}", n=n_docs, d=128, k=k, **row,
              card=card["nvidia_smi"])
     return {"max_abs_err": max(errs), **timings[(256, torch.float32, 10)],
-            "q1_f32": timings[(1, torch.float32, 10)]}
+            "q1_f32": timings[(1, torch.float32, 10)],
+            "q1_k256": {"f32": timings[(1, torch.float32, 256)],
+                        "bf16": timings[(1, torch.bfloat16, 256)]},
+            "merge_blocks": merge_blocks}
 
 
 # ---- 4. serve -----------------------------------------------------------------
@@ -2233,6 +2318,12 @@ def main() -> int:
         "single_search": {**{key: topk_row["q1_f32"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape": {"n": args.n_docs, "d": 128, "q": 1, "k": 10, "dtype": "float32"}},
+        "large_k_search": {**{name: {key: row[key] for key in (
+            "ms", "pass2_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for name, row in topk_row["q1_k256"].items()},
+            "pass2_blocks": topk_row["merge_blocks"],
+            "pass2_check": "merge_topk_cuda bit-equal to merge_topk_reference",
+            "shape": {"n": args.n_docs, "d": 128, "q": 1, "k": 256}},
         "pretrained_search_cli": pretrained["search_cli"], "pretrained_glove": pretrained["glove"],
         "card": card["nvidia_smi"],
     }, {

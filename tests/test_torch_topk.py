@@ -18,6 +18,7 @@ from test_torch_topk_kernel import CASES, case
 from twotowers_tpu.kernels.pallas_topk import score_topk_pallas
 from twotowers_tpu.ops.topk_score import score_topk as jax_score_topk
 from twotowers_tpu.ops.topk_score import score_topk_xla
+from twotowers_tpu_torch.kernels import topk
 from twotowers_tpu_torch.ops import topk_score
 from twotowers_tpu_torch.ops.topk_score import score_topk, score_topk_reference
 
@@ -107,3 +108,55 @@ def test_torch_route_matches_jax_for_large_k(np_rng):
     want_s, want_i = score_topk_xla(jnp.asarray(docs), jnp.asarray(queries), 300, 650)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-5)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+def chunk_candidates(docs, queries, s, k):
+    """Pass 1's lists by the plain version: the docs cut into ``s`` chunks
+    (as even as they go), each chunk's top-k by ``score_topk_reference``
+    with its indices moved to the whole matrix's, a chunk shorter than k
+    padded with (-inf, NO_INDEX). Returns (Q, s, k) tensors."""
+    lists_v, lists_i = [], []
+    for rows in np.array_split(np.arange(docs.shape[0]), s):
+        real = min(k, len(rows))
+        v, i = score_topk_reference(torch.from_numpy(docs[rows]), torch.from_numpy(queries), real)
+        pad = (queries.shape[0], k - real)
+        lists_v.append(torch.cat([v, torch.full(pad, -torch.inf)], 1))
+        lists_i.append(torch.cat([i + int(rows[0]), torch.full(pad, topk.NO_INDEX,
+                                                                 dtype=torch.int32)], 1))
+    return torch.stack(lists_v, 1), torch.stack(lists_i, 1)
+
+
+MERGE_PROPERTY_CASES = [(s, k) for s, k in ((1, 5), (3, 7), (17, 10), (33, 64), (50, 1),
+                                            (300, 4))]
+
+
+@pytest.mark.parametrize("kind", ["random", "tied", "integer"])
+@pytest.mark.parametrize("s,k", MERGE_PROPERTY_CASES)
+def test_merge_of_chunk_topks_is_the_topk(kind, s, k):
+    """Pass 2's plain version over the chunks' top-k lists gives the top-k
+    over all docs: bit for bit the plain version's, and the JAX package's
+    ``score_topk`` exactly. The values are multiples of 1/256 in [-1, 1]
+    ("random": few ties), integers in [-2, 2] (many) or one tied column,
+    so every f32 sum is exact whatever a matmul's blocking: a chunk's
+    scores are the whole matrix's. Chunks of 3 docs at S=300 leave most
+    lists padded."""
+    rng = np.random.default_rng(s * 100 + k)
+    n, dim = 900, 16
+    if kind == "tied":
+        docs = np.zeros((n, dim), np.float32)
+        docs[:, 0] = 1.0
+        queries = np.abs(rng.integers(-2, 3, size=(3, dim))).astype(np.float32) + 1
+    else:
+        scale, top = (256.0, 256) if kind == "random" else (1.0, 2)
+        docs = (rng.integers(-top, top + 1, size=(n, dim)) / scale).astype(np.float32)
+        queries = (rng.integers(-top, top + 1, size=(3, dim)) / scale).astype(np.float32)
+    cand_v, cand_i = chunk_candidates(docs, queries, s, k)
+    got_v, got_i = topk.merge_topk_reference(cand_v, cand_i)
+    want_v, want_i = score_topk_reference(torch.from_numpy(docs), torch.from_numpy(queries), k)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+    jax_v, jax_i = jax_score_topk(jnp.asarray(docs), jnp.asarray(queries), k)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(jax_v))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(jax_i))
+    if kind == "tied":  # every score ties: the first k docs, in order
+        np.testing.assert_array_equal(got_i.numpy(), np.tile(np.arange(k), (3, 1)))

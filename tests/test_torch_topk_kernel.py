@@ -8,13 +8,18 @@ without JAX. There the repo's conftest (which imports JAX) is left out:
 The tests marked ``cuda`` skip where there is no card. Scores agree within
 rtol 1e-5, atol 1e-6 (f32 sums in another order than cuBLAS's), indices
 exactly: the seeded cases have no near-ties. ``test_torch_topk.py`` holds
-the plain version against the JAX package on the same cases.
+the plain version against the JAX package on the same cases. Pass 2 alone
+is held bit for bit against its plain merge on candidate lists from
+``chip_smoke.crafted_lists``, which imports no JAX either.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import crafted_lists
 from twotowers_tpu_torch.kernels import topk
 from twotowers_tpu_torch.ops.topk_score import score_topk, score_topk_reference
 
@@ -131,6 +136,108 @@ def test_plan_of_a_single_search_makes_one_wave_of_splits(q, n, blocks):
     assert n_splits <= wave and 2 * n_splits > wave
     if n >= 1_000_000:
         assert n_splits >= 0.97 * wave
+
+
+MERGE_PLAN_CASES = [(s, k) for s in (1, 2, 3, 31, 32, 33, 100, 391, 521, 1023, 1024)
+                    for k in (1, 10, 64, 256)]
+
+
+@pytest.mark.parametrize("s,k", MERGE_PLAN_CASES)
+def test_merge_plan_fits_its_budget_and_covers_every_list(s, k):
+    """Pass 2's tree: one level where all S lists fit one block's shared
+    budget; else groups of even sizes that cover the S lists, each at most
+    the widest power of two that fits, as few as those allow, and a last
+    level over their winners that fits too. The two levels take
+    ceil(log2(S)) rounds, as one block over all S lists would."""
+    group, levels, smem = topk.merge_plan(s, k)
+    groups = -(-s // group)
+    sizes = [min(group, s - g * group) for g in range(groups)]
+    assert sum(sizes) == s and min(sizes) >= 1
+    budget = topk.MERGE_SMEM_BUDGET
+    if topk.merge_smem(s, k) <= budget:
+        assert (group, levels, smem) == (s, 1, topk.merge_smem(s, k))
+    else:
+        assert levels == 2 and 1 < groups < s
+        assert smem == max(topk.merge_smem(group, k), topk.merge_smem(groups, k)) <= budget
+        widest = 2 ** math.floor(math.log2(group))
+        widest = widest if widest == group else 2 * widest
+        assert topk.merge_smem(widest, k) <= budget < topk.merge_smem(2 * widest, k)
+        assert groups == -(-s // widest)  # as few groups as the widest allows
+        assert group - min(sizes) < groups
+    assert smem <= budget
+    rounds = math.ceil(math.log2(group)) + (math.ceil(math.log2(groups)) if levels == 2 else 0)
+    assert rounds == math.ceil(math.log2(s))
+
+
+@pytest.mark.parametrize("lists,k,nbytes", [(1, 1, 64), (1, 10, 192), (32, 256, 101_376),
+                                            (33, 256, 105_600), (521, 10, 64_544)])
+def test_merge_smem_counts_both_buffers(lists, k, nbytes):
+    """Values and indices of the lists plus those of the first round's
+    ceil(lists / 2) lists, each plane with a padding word after every 32
+    pairs and rounded up to whole 16-byte units (score_topk.cu's
+    merge_smem). At 33 lists of 256: 2 x 4 x (8,448 + 264 + 4,352 + 136)."""
+    assert topk.merge_smem(lists, k) == nbytes
+
+
+@pytest.mark.parametrize("s,k", [(0, 10), (1025, 10), (5, 0), (5, 257)])
+def test_merge_plan_refuses_what_the_kernel_does_not_take(s, k):
+    with pytest.raises(ValueError, match="merge_plan"):
+        topk.merge_plan(s, k)
+
+
+def _lists(q, s, k, kind, device="cpu", seed=0):
+    return crafted_lists(q, s, k, kind, torch.Generator(device=device).manual_seed(seed))
+
+
+def _rank_key(value, index):
+    return (-value if value != 0 else 0.0, index)
+
+
+@pytest.mark.parametrize("kind", ["random", "tied", "integer", "signed-zero"])
+@pytest.mark.parametrize("q,s,k", [(1, 1, 5), (2, 7, 10), (3, 33, 4)])
+def test_merge_reference_ranks_like_the_kernel(kind, q, s, k):
+    """The plain pass 2 against Python's sort of every pair by score
+    descending, -0.0 equal to +0.0, then index ascending (the kernel's
+    ranks_before), the scores' bits kept: -0.0 comes back as -0.0."""
+    cand_v, cand_i = _lists(q, s, k, kind, seed=s * 31 + k)
+    lists_v, lists_i = cand_v.view(q * s, k).tolist(), cand_i.view(q * s, k).tolist()
+    for v, i in zip(lists_v, lists_i):  # crafted as pass 1 leaves them
+        assert sorted(zip(v, i), key=lambda p: _rank_key(*p)) == list(zip(v, i))
+    got_v, got_i = topk.merge_topk_reference(cand_v, cand_i)
+    assert got_v.shape == got_i.shape == (q, k)
+    for row in range(q):
+        pairs = sorted(zip(cand_v[row].flatten().tolist(), cand_i[row].flatten().tolist()),
+                       key=lambda p: _rank_key(*p))[:k]
+        assert got_i[row].tolist() == [i for _, i in pairs]
+        want = torch.tensor([v for v, _ in pairs], dtype=torch.float32)
+        assert torch.equal(got_v[row].view(torch.int32), want.view(torch.int32))
+        assert int(got_i[row].max()) != topk.NO_INDEX  # k real pairs beat the padding
+    if kind == "signed-zero":
+        assert bool(torch.signbit(cand_v[cand_v == 0]).any())
+
+
+@pytest.mark.parametrize("shape,dtypes,match", [
+    ((2, 3), (torch.float32, torch.int32), "two \\(Q, S, k\\) tensors"),
+    ((2, 3, 4), (torch.float64, torch.int32), "float32 and int32"),
+    ((2, 1025, 4), (torch.float32, torch.int32), "1 <= S <= 1024"),
+    ((2, 3, 257), (torch.float32, torch.int32), "1 <= k <= 256"),
+])
+def test_merge_kernel_limits_raise(shape, dtypes, match):
+    with pytest.raises(ValueError, match=match):
+        topk.merge_topk_cuda(torch.zeros(shape, dtype=dtypes[0]),
+                             torch.zeros(shape, dtype=dtypes[1]))
+
+
+def test_merge_kernel_refuses_cpu_tensors():
+    """Pass 2 alone, like both passes, never hands a call to the plain
+    version; neither does pass 1 alone."""
+    before = topk.LAUNCHES
+    cand_v, cand_i = _lists(2, 3, 4, "random")
+    with pytest.raises(ValueError, match="CUDA device"):
+        topk.merge_topk_cuda(cand_v, cand_i)
+    with pytest.raises(ValueError, match="CUDA device"):
+        topk.score_topk_candidates(torch.zeros(64, 8), torch.zeros(2, 8), 5)
+    assert topk.LAUNCHES == before
 
 
 @pytest.fixture
@@ -285,3 +392,56 @@ def test_stream_kernel_breaks_ties_to_the_lower_index(cuda, q, k):
         queries[:, 0] = 1.0
     _, got_i = _bit_equal(docs, queries, k)
     assert torch.equal(got_i.cpu(), torch.arange(k, dtype=torch.int32).repeat(q, 1))
+
+
+MERGE_CASES = [(q, s, k) for q in (1, 4, 5, 257) for s, k in MERGE_PLAN_CASES]
+
+
+def _merge_bit_equal(cand_v, cand_i):
+    want_v, want_i = topk.merge_topk_reference(cand_v, cand_i)
+    before = topk.LAUNCHES
+    got_v, got_i = topk.merge_topk_cuda(cand_v.clone(), cand_i.clone())  # level 1 writes in place
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+    return got_v, got_i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,s,k", MERGE_CASES)
+def test_merge_kernel_matches_plain_version(cuda, q, s, k):
+    """Pass 2 alone on crafted lists with padding, one level or two, bit
+    for bit the plain merge's result."""
+    _merge_bit_equal(*_lists(q, s, k, "random", cuda, seed=q * 7919 + s * 31 + k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tied", "integer", "signed-zero"])
+@pytest.mark.parametrize("q,s,k", [(1, 521, 256), (5, 33, 256), (4, 1024, 10), (257, 100, 64)])
+def test_merge_kernel_breaks_ties_by_index(cuda, kind, q, s, k):
+    """All values tied, few distinct integers, -0.0 beside +0.0: equal
+    scores go to the lower index at every level of the tree, and -0.0
+    keeps its sign bit."""
+    got_v, _ = _merge_bit_equal(*_lists(q, s, k, kind, cuda, seed=s + k))
+    if kind == "signed-zero":
+        assert bool(torch.signbit(got_v[got_v == 0]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 4, 5, 257])
+@pytest.mark.parametrize("k", [10, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merge_kernel_of_pass_one_candidates(cuda, q, k, dtype):
+    """Pass 1's real lists (score_topk_candidates), merged by pass 2
+    alone and by the plain merge, give score_topk_cuda's result and the
+    plain version's, bit for bit (integer-valued inputs)."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 131 + k)
+    docs = torch.randint(-2, 3, (100_003, 128), device=cuda, generator=gen).to(dtype)
+    queries = torch.randint(-2, 3, (q, 128), device=cuda, generator=gen).float()
+    cand_v, cand_i = topk.score_topk_candidates(docs, queries, k)
+    got_v, got_i = _merge_bit_equal(cand_v, cand_i)
+    want_v, want_i = score_topk_reference(docs, queries, k)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    assert all(torch.equal(a, b) for a, b in zip(topk.score_topk_cuda(docs, queries, k),
+                                                 (got_v, got_i)))

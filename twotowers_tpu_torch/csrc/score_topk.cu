@@ -12,8 +12,45 @@
 //     split and writes it to (Q, n_splits, k) scratch, padded with
 //     (-inf, INT_MAX). Q <= 4 takes score_topk_stream, Q >= 5
 //     score_topk_tiles; both are below.
-//  2. score_topk_merge: one block per query merges the splits' sorted
-//     lists, k rounds of a block-wide arg-best over the list heads.
+//  2. Pass 2 (launch_merge) merges each query's n_splits sorted lists into
+//     its k best by a fixed tree of pairwise merges in shared memory.
+//
+// Pass 2. What bounds it is latency and barrier depth, not bytes: the
+// candidates are S*k*8 bytes, about 1 MB at Q=1, k=256 (S = 391-521 lists),
+// read once from L2 (0.3 us at the HBM rate). The pass it replaced ran one
+// block a query for k rounds, each a dependent global read of every list
+// head, a warp shuffle, two __syncthreads and thread 0 alone picking the
+// winner: at Q=1, k=256, 256 serial rounds on one SM while the other 131
+// idle, 0.30-0.34 ms.
+//  - A block copies its lists into dynamic shared memory (values and
+//    indices as two planes, 16-byte loads where the runs allow), then runs
+//    ceil(log2(lists)) rounds: lists 2p and 2p+1 merge into list p of the
+//    other buffer, keeping the first k; an odd last list passes through.
+//    A merge's k outputs are cut into a power of two of stretches, as many
+//    as the 512 threads allow; a thread finds where its stretch starts by
+//    one binary search along the merge path's diagonal, then merges it in
+//    order, reloading both heads at each step (no branch splits the warp).
+//    One __syncthreads a round. Comparisons are ranks_before itself (a key
+//    built from the float's bits would order -0.0 below +0.0), ties go to
+//    the left list, no atomics: the tree is fixed by (S, k), the result
+//    the parent's bit for bit.
+//  - Stretches start a power of two apart and lists of k = 256 all start
+//    on bank 0, so without padding a warp's accesses fall on a few banks.
+//    One padding word after every 32 pairs (skew) spreads them.
+//  - merge_plan (kernels/topk.py) keeps a block within 110 KB (two an SM):
+//    one level, one block a query, where all S lists fit (k=10 at S <=
+//    909); else level 1 (score_topk_merge_groups, grid Q x ceil(S / G))
+//    merges groups of at most the widest power of two of lists that fits
+//    (32 at k=256) and writes each winner over its group's first list,
+//    which no other block reads, and the last level
+//    (score_topk_merge_final) merges the winners: ceil(log2(S)) rounds in
+//    all. At Q=1, k=256, S=521: 17 blocks of 31 lists (5 rounds), then one
+//    of 17 (5 rounds).
+//  - ptxas: 40 registers, no spills, both kernels. The runtime fits 2
+//    level-1 blocks an SM at 99,264 bytes (k=256) and 3 last-level blocks
+//    at up to 65,376 (k=10, S=528), on an NVIDIA H100 80GB HBM3. PERF.md
+//    section 6 has each level's device ms beside the pass it replaced,
+//    timed in one run by kernels/topk_variants.py --against.
 //
 // score_topk_stream (1 <= Q <= 4, every single search). What bounds it on
 // an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores) is bytes:
@@ -102,7 +139,7 @@
 namespace {
 
 constexpr int THREADS1 = 128;       // score_topk_tiles: 4 warps
-constexpr int THREADS2 = 256;       // pass 2
+constexpr int MERGE_THREADS = 512;  // pass 2
 constexpr int MAX_SPLITS = 1024;
 constexpr float MASKED = -1e30f;
 constexpr int NO_INDEX = 0x7fffffff;
@@ -566,54 +603,170 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
     }
 }
 
-__global__ void __launch_bounds__(THREADS2)
-score_topk_merge(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
-                 int n_splits, int k, float* __restrict__ out_v, int* __restrict__ out_i) {
-    constexpr int WARPS = THREADS2 / 32;
-    __shared__ int head[MAX_SPLITS];
-    __shared__ float warp_v[WARPS];
-    __shared__ int warp_i[WARPS];
-    __shared__ int warp_s[WARPS];
+// Where pair e of a list buffer lies in its shared plane: one word of
+// padding after every 32, so that threads whose stretches start a power of
+// two apart (lists of k = 256 all start on bank 0) fall on other banks.
+__device__ __forceinline__ int skew(int e) { return e + (e >> 5); }
 
+// Words of a shared plane of n pairs' values or indices, padding included,
+// rounded up to whole 16-byte units.
+__host__ __device__ constexpr int plane(int n) { return (n + (n + 31) / 32 + 3) / 4 * 4; }
+
+// Dynamic shared memory of a merge block over `lists` lists of k pairs: the
+// lists, then room for the ceil(lists / 2) lists of the first round.
+size_t merge_smem(int lists, int k) {
+    return 2 * sizeof(float) * (size_t)(plane(lists * k) + plane((lists + 1) / 2 * k));
+}
+
+// One block merges `lists` lists of k (value, index) pairs, each sorted by
+// ranks_before, into their k best in that order. List j is at
+// src_v / src_i + j * stride * k; the result goes to dst_v / dst_i, which
+// may be list 0 itself (every global read ends before the first write).
+// Pairs are unique but for the padding (-inf, NO_INDEX), so the k best are
+// one answer, whatever the tree's shape.
+__device__ __forceinline__ void merge_lists(const float* src_v, const int* src_i, int lists,
+                                            int stride, int k, float* dst_v, int* dst_i) {
+    extern __shared__ float4 smem4[];
+    const int cap_x = plane(lists * k), cap_y = plane((lists + 1) / 2 * k);
+    float* sv = reinterpret_cast<float*>(smem4);   // [lists][k] values
+    int* si = reinterpret_cast<int*>(sv + cap_x);  // [lists][k] indices
+    float* dv = reinterpret_cast<float*>(si + cap_x);  // [ceil(lists / 2)][k]
+    int* di = reinterpret_cast<int*>(dv + cap_y);
     const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const long long q = blockIdx.x;
-    const float* cv = cand_v + q * n_splits * k;
-    const int* ci = cand_i + q * n_splits * k;
-    for (int s = tid; s < n_splits; s += THREADS2) head[s] = 0;
+
+    // The lists are runs of contiguous pairs: one run of lists * k at
+    // stride 1, else one run a list. 16-byte loads where every run starts
+    // 16-byte aligned and holds whole units, else one pair a load.
+    const int run = stride == 1 ? lists * k : k, runs = stride == 1 ? 1 : lists;
+    const bool vec = run % 4 == 0 && (runs == 1 || (stride * k) % 4 == 0)
+                     && reinterpret_cast<uintptr_t>(src_v) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(src_i) % 16 == 0;
+    const int width = vec ? 4 : 1, per_run = run / width;
+    for (int u = tid; u < runs * per_run; u += MERGE_THREADS) {
+        const int r = u / per_run;
+        const long long g = (long long)r * stride * k + (long long)(u - r * per_run) * width;
+        const int e = skew(u * width);  // a unit never crosses a padding word
+        if (vec) {
+            const float4 v = *reinterpret_cast<const float4*>(src_v + g);
+            const int4 x = *reinterpret_cast<const int4*>(src_i + g);
+            sv[e] = v.x; sv[e + 1] = v.y; sv[e + 2] = v.z; sv[e + 3] = v.w;
+            si[e] = x.x; si[e + 1] = x.y; si[e + 2] = x.z; si[e + 3] = x.w;
+        } else {
+            sv[e] = src_v[g];
+            si[e] = src_i[g];
+        }
+    }
     __syncthreads();
 
-    for (int r = 0; r < k; ++r) {
-        float bv = -INFINITY;
-        int bi = NO_INDEX, bs = -1;
-        for (int s = tid; s < n_splits; s += THREADS2) {
-            const int h = head[s];
-            if (h >= k) continue;
-            const float v = cv[s * k + h];
-            const int i = ci[s * k + h];
-            if (bs < 0 || ranks_before(v, i, bv, bi)) { bv = v; bi = i; bs = s; }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-            const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-            const int os = __shfl_down_sync(0xffffffffu, bs, off);
-            if (os >= 0 && (bs < 0 || ranks_before(ov, oi, bv, bi))) { bv = ov; bi = oi; bs = os; }
-        }
-        if (lane == 0) { warp_v[warp] = bv; warp_i[warp] = bi; warp_s[warp] = bs; }
-        __syncthreads();
-        if (tid == 0) {
-            for (int w = 1; w < WARPS; ++w) {
-                if (warp_s[w] >= 0 && (bs < 0 || ranks_before(warp_v[w], warp_i[w], bv, bi))) {
-                    bv = warp_v[w]; bi = warp_i[w]; bs = warp_s[w];
+    // log2(lists) rounds: round by round, lists 2p and 2p+1 merge into
+    // list p of the other buffer, keeping the first k; an odd last list
+    // passes through. A merge's k outputs are cut into 2^shift stretches,
+    // as many as the threads allow (at most k); a thread takes one, finds
+    // where it starts on the merge path by a binary search along the
+    // diagonal, then merges it in order; ties go to the left list.
+    for (int n = lists; n > 1; n = (n + 1) / 2) {
+        const int outs = (n + 1) / 2;
+        int shift = 0;
+        while ((2 << shift) <= k && (outs << (shift + 1)) <= MERGE_THREADS) ++shift;
+        const int chunk = ((k - 1) >> shift) + 1;
+        for (int item = tid; item < (outs << shift); item += MERGE_THREADS) {
+            const int p = item >> shift;
+            const int d0 = (item & ((1 << shift) - 1)) * chunk;
+            if (d0 >= k) continue;
+            const int d1 = min(d0 + chunk, k);
+            const int a0 = 2 * p * k, b0 = a0 + k, o0 = p * k;  // pair indices, unskewed
+            if (2 * p + 1 == n) {
+                for (int d = d0; d < d1; ++d) {
+                    dv[skew(o0 + d)] = sv[skew(a0 + d)];
+                    di[skew(o0 + d)] = si[skew(a0 + d)];
                 }
+                continue;
             }
-            out_v[q * k + r] = bv;
-            out_i[q * k + r] = bi;
-            if (bs >= 0) head[bs] += 1;
+            // i = how many of the first d0 outputs come from a: a[mid] is
+            // among them unless b[d0 - 1 - mid] ranks strictly before it
+            int lo = 0, hi = d0;
+            while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                const int ea = skew(a0 + mid), eb = skew(b0 + d0 - 1 - mid);
+                if (ranks_before(sv[eb], si[eb], sv[ea], si[ea])) hi = mid;
+                else lo = mid + 1;
+            }
+            // i + j = d < k, so both heads stay inside their lists
+            int i = lo, j = d0 - lo;
+            float a = sv[skew(a0 + i)], b = sv[skew(b0 + j)];
+            int ax = si[skew(a0 + i)], bx = si[skew(b0 + j)];
+            for (int d = d0; d < d1; ++d) {
+                const bool take_b = ranks_before(b, bx, a, ax);
+                dv[skew(o0 + d)] = take_b ? b : a;
+                di[skew(o0 + d)] = take_b ? bx : ax;
+                if (d + 1 == d1) break;
+                // both heads reloaded: no branch that splits the warp
+                i += !take_b;
+                j += take_b;
+                a = sv[skew(a0 + i)]; ax = si[skew(a0 + i)];
+                b = sv[skew(b0 + j)]; bx = si[skew(b0 + j)];
+            }
         }
         __syncthreads();
+        float* tv = sv; sv = dv; dv = tv;
+        int* ti = si; si = di; di = ti;
     }
+    for (int r = tid; r < k; r += MERGE_THREADS) {
+        dst_v[r] = sv[skew(r)];
+        dst_i[r] = si[skew(r)];
+    }
+}
+
+// Level 1 of a two-level pass 2: block (q, g) merges lists g*group ..
+// g*group + group - 1 of query q and writes their k best over list g*group,
+// which no other block reads.
+__global__ void __launch_bounds__(MERGE_THREADS)
+score_topk_merge_groups(float* cand_v, int* cand_i, int n_splits, int k, int group) {
+    const int first = blockIdx.y * group;
+    const long long o = ((long long)blockIdx.x * n_splits + first) * k;
+    merge_lists(cand_v + o, cand_i + o, min(group, n_splits - first), 1, k, cand_v + o,
+                cand_i + o);
+}
+
+// The last level: block q merges `lists` lists of query q, list j at list
+// j * stride (all the splits at stride 1, or level 1's winners at stride
+// group), into out (Q, k).
+__global__ void __launch_bounds__(MERGE_THREADS)
+score_topk_merge_final(const float* cand_v, const int* cand_i, int n_splits, int k, int lists,
+                       int stride, float* __restrict__ out_v, int* __restrict__ out_i) {
+    const long long q = blockIdx.x;
+    merge_lists(cand_v + q * n_splits * k, cand_i + q * n_splits * k, lists, stride, k,
+                out_v + q * k, out_i + q * k);
+}
+
+// Pass 2 over (n_queries, n_splits, k) candidates: one level when `group`
+// >= n_splits, else level 1 over groups of `group` lists (in place), then
+// the last level over their winners. merge_plan (kernels/topk.py) picks
+// group so that each level's shared memory fits its budget.
+cudaError_t launch_merge(float* cand_v, int* cand_i, int n_queries, int n_splits, int k,
+                         int group, float* out_v, int* out_i, cudaStream_t stream) {
+    if (n_queries < 1 || n_splits < 1 || n_splits > MAX_SPLITS || k < 1 || group < 1)
+        return cudaErrorInvalidValue;
+    const int n_groups = (n_splits + group - 1) / group;
+    cudaError_t err;
+    if (n_groups > 1) {
+        const size_t smem = merge_smem(group, k);
+        err = cudaFuncSetAttribute(score_topk_merge_groups,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        score_topk_merge_groups<<<dim3(n_queries, n_groups), MERGE_THREADS, smem, stream>>>(
+            cand_v, cand_i, n_splits, k, group);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+    }
+    const int lists = n_groups > 1 ? n_groups : n_splits;
+    const size_t smem = merge_smem(lists, k);
+    err = cudaFuncSetAttribute(score_topk_merge_final,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    score_topk_merge_final<<<n_queries, MERGE_THREADS, smem, stream>>>(
+        cand_v, cand_i, n_splits, k, lists, n_groups > 1 ? group : 1, out_v, out_i);
+    return cudaGetLastError();
 }
 
 template <typename T, int NQ>
@@ -639,24 +792,19 @@ cudaError_t launch_stream_q(const void* docs, const void* queries, long long n, 
 template <typename T>
 cudaError_t launch_stream(const void* docs, const void* queries, long long n, int n_queries,
                           int dim, int k, long long n_docs, int n_splits, long long split_len,
-                          float* cand_v, int* cand_i, float* out_v, int* out_i,
-                          cudaStream_t stream) {
-    cudaError_t err;
+                          float* cand_v, int* cand_i, cudaStream_t stream) {
     switch (n_queries) {
-        case 1: err = launch_stream_q<T, 1>(docs, queries, n, dim, k, n_docs, n_splits,
-                                            split_len, cand_v, cand_i, stream); break;
-        case 2: err = launch_stream_q<T, 2>(docs, queries, n, dim, k, n_docs, n_splits,
-                                            split_len, cand_v, cand_i, stream); break;
-        case 3: err = launch_stream_q<T, 3>(docs, queries, n, dim, k, n_docs, n_splits,
-                                            split_len, cand_v, cand_i, stream); break;
-        case 4: err = launch_stream_q<T, 4>(docs, queries, n, dim, k, n_docs, n_splits,
-                                            split_len, cand_v, cand_i, stream); break;
-        default: return cudaErrorInvalidValue;
+        case 1: return launch_stream_q<T, 1>(docs, queries, n, dim, k, n_docs, n_splits,
+                                               split_len, cand_v, cand_i, stream);
+        case 2: return launch_stream_q<T, 2>(docs, queries, n, dim, k, n_docs, n_splits,
+                                               split_len, cand_v, cand_i, stream);
+        case 3: return launch_stream_q<T, 3>(docs, queries, n, dim, k, n_docs, n_splits,
+                                               split_len, cand_v, cand_i, stream);
+        case 4: return launch_stream_q<T, 4>(docs, queries, n, dim, k, n_docs, n_splits,
+                                               split_len, cand_v, cand_i, stream);
+        default: break;
     }
-    if (err != cudaSuccess) return err;
-    score_topk_merge<<<n_queries, THREADS2, 0, stream>>>(cand_v, cand_i, n_splits, k,
-                                                         out_v, out_i);
-    return cudaGetLastError();
+    return cudaErrorInvalidValue;
 }
 
 template <typename T, int NQ>
@@ -698,8 +846,7 @@ cudaError_t tiles_attributes(int k) {
 template <typename T>
 cudaError_t launch_tiles(const void* docs, const void* queries, long long n, int n_queries,
                          int dim, int k, long long n_docs, int n_splits, long long split_len,
-                         float* cand_v, int* cand_i, float* out_v, int* out_i,
-                         cudaStream_t stream) {
+                         float* cand_v, int* cand_i, cudaStream_t stream) {
     cudaError_t err = tiles_attributes<T>(k);
     if (err != cudaSuccess) return err;
     const int vec = dim % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0
@@ -708,10 +855,6 @@ cudaError_t launch_tiles(const void* docs, const void* queries, long long n, int
     score_topk_tiles<T><<<grid, THREADS1, tiles_smem(k), stream>>>(
         static_cast<const T*>(docs), static_cast<const T*>(queries), n, n_queries, dim, k,
         n_docs, split_len, vec, cand_v, cand_i);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    score_topk_merge<<<n_queries, THREADS2, 0, stream>>>(cand_v, cand_i, n_splits, k,
-                                                         out_v, out_i);
     return cudaGetLastError();
 }
 
@@ -723,6 +866,22 @@ cudaError_t tiles_occupancy(int k, int* blocks_per_sm) {
                                                          THREADS1, tiles_smem(k));
 }
 
+template <typename K>
+cudaError_t merge_occupancy(K kernel, int lists, int k, int* smem_bytes, int* blocks_per_sm,
+                            int* registers, int* local_bytes) {
+    *smem_bytes = (int)merge_smem(lists, k);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           *smem_bytes);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    *registers = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, MERGE_THREADS,
+                                                         *smem_bytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -732,28 +891,42 @@ extern "C" {
 // (n_queries, n_splits, k) scratch; out_v/out_i are (n_queries, k).
 // rows_per_thread picks pass 1: 1 (score_topk_stream, 1 <= n_queries <= 4,
 // one block a split) or 8 (score_topk_tiles, 32 queries a block).
+// merge_group is pass 2's group of lists (merge_plan); 0 runs pass 1 alone
+// and leaves its lists in cand_v/cand_i, out_v/out_i untouched.
 // Returns the cudaError_t of the launches (0 on success).
 int score_topk_launch(const void* docs, const void* queries, int docs_bf16,
                       long long n, int n_queries, int dim, int k, long long n_docs,
                       int n_splits, long long split_len, int rows_per_thread,
                       float* cand_v, int* cand_i, float* out_v, int* out_i,
-                      void* stream) {
-    if (n_splits < 1 || n_splits > MAX_SPLITS) return (int)cudaErrorInvalidValue;
+                      int merge_group, void* stream) {
+    if (n_splits < 1 || n_splits > MAX_SPLITS || merge_group < 0)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (docs_bf16) {
-        if (rows_per_thread == 1)
-            return (int)launch_stream<__nv_bfloat16>(docs, queries, n, n_queries, dim, k,
-                                                     n_docs, n_splits, split_len, cand_v,
-                                                     cand_i, out_v, out_i, s);
-        return (int)launch_tiles<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
-                                                n_splits, split_len, cand_v, cand_i,
-                                                out_v, out_i, s);
-    }
-    if (rows_per_thread == 1)
-        return (int)launch_stream<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
-                                         split_len, cand_v, cand_i, out_v, out_i, s);
-    return (int)launch_tiles<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
-                                    split_len, cand_v, cand_i, out_v, out_i, s);
+    cudaError_t err;
+    if (docs_bf16)
+        err = rows_per_thread == 1
+            ? launch_stream<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
+                                           n_splits, split_len, cand_v, cand_i, s)
+            : launch_tiles<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
+                                          n_splits, split_len, cand_v, cand_i, s);
+    else
+        err = rows_per_thread == 1
+            ? launch_stream<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
+                                   split_len, cand_v, cand_i, s)
+            : launch_tiles<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
+                                  split_len, cand_v, cand_i, s);
+    if (err != cudaSuccess || merge_group == 0) return (int)err;
+    return (int)launch_merge(cand_v, cand_i, n_queries, n_splits, k, merge_group, out_v, out_i,
+                             s);
+}
+
+// Pass 2 alone over (n_queries, n_splits, k) lists, each sorted best first
+// and padded with (-inf, INT_MAX), into out_v/out_i (n_queries, k). With
+// more than one group (group < n_splits) level 1 overwrites the lists.
+int score_topk_merge_launch(float* cand_v, int* cand_i, int n_queries, int n_splits, int k,
+                            int group, float* out_v, int* out_i, void* stream) {
+    return (int)launch_merge(cand_v, cand_i, n_queries, n_splits, k, group, out_v, out_i,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The dynamic shared memory of a score_topk_tiles block at this k, and the
@@ -775,6 +948,16 @@ int score_topk_stream_occupancy(int docs_bf16, int n_queries, int dim, int k, in
                                                             registers, local_bytes)
                      : (int)stream_occupancy<float>(n_queries, dim, k, blocks_per_sm,
                                                     registers, local_bytes);
+}
+
+// The same for a pass-2 block over `lists` lists of k: level 1
+// (score_topk_merge_groups) when final_level == 0, else the last level.
+int score_topk_merge_occupancy(int final_level, int lists, int k, int* smem_bytes,
+                               int* blocks_per_sm, int* registers, int* local_bytes) {
+    return final_level ? (int)merge_occupancy(score_topk_merge_final, lists, k, smem_bytes,
+                                              blocks_per_sm, registers, local_bytes)
+                       : (int)merge_occupancy(score_topk_merge_groups, lists, k, smem_bytes,
+                                              blocks_per_sm, registers, local_bytes);
 }
 
 }  // extern "C"

@@ -10,11 +10,17 @@ The kernel takes f32 or bf16 docs, any ``N >= 1`` and ``Q >= 1``,
 wrapper raises ``ValueError`` and hands nothing to the plain version. It
 launches on the current stream, allocates outputs and scratch with
 ``torch.empty``, and raises if the launch returns a CUDA error.
+
+Pass 1 leaves each query's ``(n_splits, k)`` sorted lists in scratch;
+pass 2 merges them by a fixed tree (``merge_plan``). ``merge_topk_cuda``
+runs pass 2 alone and ``merge_topk_reference`` is its plain version, for
+the checks; ``score_topk_candidates`` runs pass 1 alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -28,7 +34,11 @@ STREAM_ROWS = 128   # Q <= 4 splits are a whole number of these rows: one block
                     # iteration of score_topk_stream reads 64 (f32) or 128 (bf16)
 BATCH_TILE_N = 256  # score_topk.cu:BN, doc rows per tile of the Q >= 5 pass 1
 
-# kernel launches so far; a run reads it to show it went through the kernel
+MERGE_SMEM_BUDGET = 110 * 1024  # shared bytes of a pass-2 block, at most: 2 blocks an SM
+NO_INDEX = 2**31 - 1  # the index of a padding pair, beside the value -inf
+
+# kernel launches so far (both passes, or one of them alone); a run reads it
+# to show it went through the kernel
 LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -59,6 +69,42 @@ def plan(n_queries: int, n: int, sm_count: int,
     return rows, -(-n // split_len), split_len
 
 
+def merge_smem(lists: int, k: int) -> int:
+    """Shared bytes of a pass-2 block over ``lists`` lists of ``k`` pairs
+    (``score_topk.cu:merge_smem``): values and indices of the lists, then
+    of the ``ceil(lists / 2)`` lists of its first round, each plane with a
+    padding word after every 32 pairs and rounded up to whole 16-byte
+    units."""
+    plane = lambda n: -(-(n - (-n // 32)) // 4) * 4  # noqa: E731
+    return 8 * (plane(lists * k) + plane(-(-lists // 2) * k))
+
+
+@functools.lru_cache(maxsize=None)
+def merge_plan(n_splits: int, k: int) -> Tuple[int, int, int]:
+    """(group, levels, smem_bytes) of pass 2 over ``n_splits`` lists of k.
+
+    One level, one block a query over every list, where their shared
+    memory fits ``MERGE_SMEM_BUDGET``. Else two: level 1 merges groups of
+    ``group`` lists, one block per query and group, and the last level
+    merges the groups' winners. The groups are as few as fit when each
+    holds at most the widest power of two that fits, so that the two
+    levels take ceil(log2(n_splits)) rounds in all, and of even sizes (the
+    last may be shorter). ``smem_bytes`` is the larger level's block.
+    """
+    if not 1 <= n_splits <= MAX_SPLITS or not 1 <= k <= MAX_K:
+        raise ValueError(f"merge_plan: needs 1 <= n_splits <= {MAX_SPLITS} and "
+                         f"1 <= k <= {MAX_K}, got {n_splits} and {k}")
+    if merge_smem(n_splits, k) <= MERGE_SMEM_BUDGET:
+        return n_splits, 1, merge_smem(n_splits, k)
+    widest = 2
+    while merge_smem(2 * widest, k) <= MERGE_SMEM_BUDGET:
+        widest *= 2
+    groups = -(-n_splits // widest)
+    group = -(-n_splits // groups)
+    groups = -(-n_splits // group)
+    return group, 2, max(merge_smem(group, k), merge_smem(groups, k))
+
+
 def check_args(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int) -> None:
     """Raise ValueError for a call the kernel does not take."""
     if doc_matrix.dim() != 2 or queries.dim() != 2:
@@ -86,13 +132,19 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64, i32,
-                       ptr, ptr, ptr, ptr, ptr]
+                       ptr, ptr, ptr, ptr, i32, ptr]
         fn.restype = i32
         occ = lib.score_topk_tiles_occupancy
         occ.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
         occ.restype = i32
         occ = lib.score_topk_stream_occupancy
         occ.argtypes = [i32, i32, i32, i32] + [ctypes.POINTER(i32)] * 4
+        occ.restype = i32
+        merge = lib.score_topk_merge_launch
+        merge.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
+        merge.restype = i32
+        occ = lib.score_topk_merge_occupancy
+        occ.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 4
         occ.restype = i32
     return lib
 
@@ -137,14 +189,25 @@ def stream_occupancy(device: torch.device, dtype: torch.dtype, n_queries: int, d
     return _stream_occupancy[key]
 
 
-def score_topk_cuda(
-    doc_matrix: torch.Tensor,
-    queries: torch.Tensor,
-    k: int,
-    n_docs: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of ``queries @ doc_matrix.T`` on the card: (Q, k) float32
-    scores and int32 indices."""
+def merge_occupancy(device: torch.device, final_level: bool, lists: int,
+                    k: int) -> Dict[str, int]:
+    """A pass-2 block over ``lists`` lists of ``k`` on the card, level 1
+    (``score_topk_merge_groups``) or the last level
+    (``score_topk_merge_final``), as the CUDA runtime reports it: the keys
+    of ``stream_occupancy``."""
+    out = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device):
+        err = _lib().score_topk_merge_occupancy(int(final_level), lists, k,
+                                                *map(ctypes.byref, out))
+    if err != 0:
+        raise RuntimeError(f"score_topk merge occupancy query failed with cudaError_t {err}")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"),
+                    (o.value for o in out)))
+
+
+def _launch(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optional[int],
+            merge: bool):
+    """Pass 1, then pass 2 if ``merge``: (cand_v, cand_i, out_v, out_i)."""
     global LAUNCHES
     check_args(doc_matrix, queries, k)
     device = doc_matrix.device
@@ -161,6 +224,7 @@ def score_topk_cuda(
     else:
         per_sm = stream_occupancy(device, doc_matrix.dtype, n_queries, dim, k)["blocks_per_sm"]
     rows, n_splits, split_len = plan(n_queries, n, sm_count, per_sm)
+    group = merge_plan(n_splits, k)[0] if merge else 0
 
     cand_v = torch.empty((n_queries, n_splits, k), dtype=torch.float32, device=device)
     cand_i = torch.empty((n_queries, n_splits, k), dtype=torch.int32, device=device)
@@ -172,9 +236,97 @@ def score_topk_cuda(
             doc_matrix.data_ptr(), queries.data_ptr(),
             int(doc_matrix.dtype == torch.bfloat16), n, n_queries, dim, k, n_docs,
             n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), group,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"score_topk kernel launch failed with cudaError_t {err}")
     LAUNCHES += 1
+    return cand_v, cand_i, out_v, out_i
+
+
+def score_topk_cuda(
+    doc_matrix: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    n_docs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of ``queries @ doc_matrix.T`` on the card: (Q, k) float32
+    scores and int32 indices."""
+    return _launch(doc_matrix, queries, k, n_docs, merge=True)[2:]
+
+
+def score_topk_candidates(
+    doc_matrix: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    n_docs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 alone on the card: the (Q, n_splits, k) sorted lists, padded
+    with (-inf, ``NO_INDEX``), that pass 2 of ``score_topk_cuda`` would
+    merge. For the checks of pass 2; counted in ``LAUNCHES``."""
+    return _launch(doc_matrix, queries, k, n_docs, merge=False)[:2]
+
+
+def _check_candidates(cand_v: torch.Tensor, cand_i: torch.Tensor) -> None:
+    if cand_v.dim() != 3 or cand_v.shape != cand_i.shape:
+        raise ValueError("merge_topk: candidates must be two (Q, S, k) tensors of one shape, "
+                         f"got {tuple(cand_v.shape)} and {tuple(cand_i.shape)}")
+    if cand_v.dtype != torch.float32 or cand_i.dtype != torch.int32:
+        raise ValueError(f"merge_topk: candidates must be float32 and int32, got "
+                         f"{cand_v.dtype} and {cand_i.dtype}")
+    q, s, k = cand_v.shape
+    if q < 1 or not 1 <= s <= MAX_SPLITS or not 1 <= k <= MAX_K:
+        raise ValueError(f"merge_topk: the kernel takes Q >= 1, 1 <= S <= {MAX_SPLITS} and "
+                         f"1 <= k <= {MAX_K}, got {tuple(cand_v.shape)}")
+
+
+def merge_topk_cuda(cand_v: torch.Tensor,
+                    cand_i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 alone on the card: the (Q, k) best of each query's S lists
+    of k (value, index) pairs, each list sorted best first (score
+    descending, then index ascending) and padded with (-inf, ``NO_INDEX``).
+
+    Where ``merge_plan`` gives two levels, level 1 writes its groups'
+    winners over the first list of each group: **the candidates are
+    overwritten**, so a check passes a copy. It launches the kernel's
+    pass 2 and adds one to ``LAUNCHES``, the count it shares with
+    ``score_topk_cuda``.
+    """
+    global LAUNCHES
+    _check_candidates(cand_v, cand_i)
+    device = cand_v.device
+    if device.type != "cuda" or cand_i.device != device:
+        raise ValueError("merge_topk kernel: candidates must be on one CUDA device, "
+                         f"got {device} and {cand_i.device}")
+    if not (cand_v.is_contiguous() and cand_i.is_contiguous()):
+        raise ValueError("merge_topk kernel: candidates must be contiguous")
+    q, s, k = cand_v.shape
+    out_v = torch.empty((q, k), dtype=torch.float32, device=device)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = _lib().score_topk_merge_launch(
+            cand_v.data_ptr(), cand_i.data_ptr(), q, s, k, merge_plan(s, k)[0],
+            out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score_topk merge launch failed with cudaError_t {err}")
+    LAUNCHES += 1
     return out_v, out_i
+
+
+def merge_topk_reference(cand_v: torch.Tensor,
+                         cand_i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch pass 2: the first k of each query's S*k candidates
+    sorted by score descending, then index ascending, as the kernel's
+    ``ranks_before`` orders them (-0.0 ties with +0.0 and goes on to the
+    index). A stable sort by index, then a stable sort by score; the
+    scores' bits come back as they went in. Used by the tests and the
+    checks only."""
+    _check_candidates(cand_v, cand_i)
+    q, _, k = cand_v.shape
+    values, index = cand_v.reshape(q, -1), cand_i.reshape(q, -1)
+    by_index = torch.sort(index, dim=1, stable=True).indices
+    key = torch.gather(values, 1, by_index)
+    key = torch.where(key == 0, torch.zeros_like(key), key)  # -0.0 sorts as +0.0
+    order = torch.gather(by_index, 1,
+                         torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k])
+    return torch.gather(values, 1, order), torch.gather(index, 1, order)

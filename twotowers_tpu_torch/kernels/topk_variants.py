@@ -8,14 +8,19 @@ or the shipped kernel under another plan. ``--against DIR`` adds the
 ``score_topk.cu`` of another checkout of the repo (say, a ``git archive``
 of the parent commit) as the variant "against", under this tree's plan; a
 source without ``score_topk_stream_occupancy`` gets 8 Q <= 4 blocks an SM,
-the count that the plan once fixed. ``--only`` keeps the named variants.
-Each variant is first held bit-equal to the plain version on
-integer-valued inputs (Q=1, 4 and 257), then timed with CUDA events at
-N=1M, D=128 (Q=1 and 4 in f32 and bf16, Q=1 at k=256, Q=32 in f32 and
-bf16, Q=256 in f32 and bf16; k=10 elsewhere) in the order A B C ... C B A;
-a time is the mean of its two turns. Prints one JSON line per variant;
-then the opcode counts of the shipped f32 passes 1 (``cuobjdump -sass``)
-and the SM clock and power that ``nvidia-smi`` samples while the shipped
+the count that the plan once fixed, and a source without
+``score_topk_merge_launch`` (pass 2 as one block a query, before the merge
+tree) is launched without a merge group. ``--only`` keeps the named
+variants. Each variant is first held bit-equal to the plain version on
+integer-valued inputs (Q=1, 4 and 257 at k=10, Q=1 and 257 at k=256), then
+timed with CUDA events at N=1M, D=128 (``SHAPES``: Q=1 and 4 in f32 and
+bf16, Q=1 at k=256 in f32 and bf16, Q=32 in f32 and bf16, Q=256 in f32 and
+bf16, Q=32 and 256 at k=256 in f32; k=10 elsewhere) in the order A B C ...
+C B A; a time is the mean of its two turns. Prints one JSON line per
+variant, with the device ms by kernel (``torch.profiler``: pass 1 and each
+level of pass 2) at every shape for the shipped kernel and "against"; then
+the opcode counts of the shipped f32 passes 1 (``cuobjdump -sass``) and
+the SM clock and power that ``nvidia-smi`` samples while the shipped
 kernel runs Q=256 f32 and Q=1 f32 for a few seconds each; last the card's
 name and power limit.
 """
@@ -39,8 +44,9 @@ from ..ops.topk_score import score_topk_reference
 OUT_DIR = build.BUILD_DIR.parent / "topk_variants"
 K, N, DIM = 10, 1_000_000, 128
 SHAPES = [(1, torch.float32, K), (1, torch.bfloat16, K), (4, torch.float32, K),
-          (4, torch.bfloat16, K), (1, torch.float32, 256), (32, torch.float32, K),
-          (32, torch.bfloat16, K), (256, torch.float32, K), (256, torch.bfloat16, K)]
+          (4, torch.bfloat16, K), (1, torch.float32, 256), (1, torch.bfloat16, 256),
+          (32, torch.float32, K), (32, torch.bfloat16, K), (256, torch.float32, K),
+          (256, torch.bfloat16, K), (32, torch.float32, 256), (256, torch.float32, 256)]
 
 
 def one_full_wave(q, n, sm, per_sm):
@@ -74,6 +80,10 @@ VARIANTS = {
                           "constexpr int STREAM_WARPS = 16;")], topk.plan),
     "stream launch bound 3 blocks at every Q": ([("NQ == 1 ? 3 : 1)", "3)")], topk.plan),
     "stream no launch bound": ([("NQ == 1 ? 3 : 1)", "1)")], topk.plan),
+    "merge 256 threads": ([("constexpr int MERGE_THREADS = 512;",
+                            "constexpr int MERGE_THREADS = 256;")], topk.plan),
+    "merge 1024 threads": ([("constexpr int MERGE_THREADS = 512;",
+                             "constexpr int MERGE_THREADS = 1024;")], topk.plan),
 }
 AGAINST = "against"
 
@@ -151,8 +161,9 @@ def clocks_while(fn, seconds: float = 4.0) -> dict:
 def launcher(lib: ctypes.CDLL, plan):
     """score_topk_cuda's launch through ``lib`` under ``plan``."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    tree = hasattr(lib, "score_topk_merge_launch")  # else pass 2 takes no group
     lib.score_topk_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64, i32,
-                                      ptr, ptr, ptr, ptr, ptr]
+                                      ptr, ptr, ptr, ptr] + [i32] * tree + [ptr]
     occupancy = {}
 
     def per_sm(dtype, q, k=K):
@@ -182,10 +193,11 @@ def launcher(lib: ctypes.CDLL, plan):
         cand_i = torch.empty((q, n_splits, k), dtype=torch.int32, device=docs.device)
         out_v = torch.empty((q, k), dtype=torch.float32, device=docs.device)
         out_i = torch.empty((q, k), dtype=torch.int32, device=docs.device)
+        group = [topk.merge_plan(n_splits, k)[0]] if tree else []
         err = lib.score_topk_launch(
             docs.data_ptr(), queries.data_ptr(), int(docs.dtype == torch.bfloat16), n, q, dim,
             k, n, n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            out_v.data_ptr(), out_i.data_ptr(), *group, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError_t {err}")
         return out_v, out_i
@@ -206,6 +218,31 @@ def event_ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms_by_kernel(fn, reps: int = 10) -> dict:
+    """Device ms per call of ``fn`` by kernel name (``torch.profiler``),
+    after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for event in prof.key_averages():
+        if event.device_type == DeviceType.CPU:
+            continue
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = getattr(event, "self_cuda_time_total", 0.0)
+        if us > 0:
+            name = re.sub(r"^(void )?\(anonymous namespace\)::", "", event.key)
+            out[name.split("(")[0]] = us / reps / 1e3
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--against", help="root of another checkout whose kernel to time too")
@@ -224,12 +261,12 @@ def main() -> int:
         ints = torch.randint(-2, 3, (100_003, 128), device=dev, generator=gen).float()
         qints = torch.randint(-2, 3, (257, 128), device=dev, generator=gen).float()
         for dtype in (torch.float32, torch.bfloat16):
-            for q in (1, 4, 257):
-                got = run(ints.to(dtype), qints[:q].to(dtype))
-                want = score_topk_reference(ints.to(dtype), qints[:q], K)
+            for q, k in ((1, K), (4, K), (257, K), (1, 256), (257, 256)):
+                got = run(ints.to(dtype), qints[:q].to(dtype), k)
+                want = score_topk_reference(ints.to(dtype), qints[:q], k)
                 if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                    raise AssertionError(f"variant {name!r} {dtype} Q={q}: not the plain "
-                                         "version's result")
+                    raise AssertionError(f"variant {name!r} {dtype} Q={q} k={k}: not the "
+                                         "plain version's result")
         runs[name] = (run, {"ptxas": ptxas, "occupancy_f32_bf16": {
             f"q{q}": [per_sm(torch.float32, q), per_sm(torch.bfloat16, q)] for q in (1, 4, 5)}})
     docs = torch.randn(N, DIM, device=dev, generator=gen)
@@ -243,8 +280,13 @@ def main() -> int:
         for q, dtype, k in SHAPES:
             d, qs = inputs[dtype], queries[q].to(dtype)
             times[name][label(q, dtype, k)].append(event_ms(lambda: runs[name][0](d, qs, k)))
-    for name, (_, info) in runs.items():
+    for name, (run, info) in runs.items():
         ms = {shape: sum(t) / len(t) for shape, t in times[name].items()}
+        if name in ("shipped", AGAINST):  # pass 1 and each level of pass 2 apart
+            info["device_ms_by_kernel"] = {
+                label(q, dtype, k): device_ms_by_kernel(
+                    lambda: run(inputs[dtype], queries[q].to(dtype), k))
+                for q, dtype, k in SHAPES}
         print(json.dumps({"variant": name, "ms": ms, "turns": times[name], **info}), flush=True)
     for kernel in ("score_topk_tilesIf", "score_topk_streamIfLi1"):
         print(json.dumps({f"sass_opcodes shipped {kernel}":
