@@ -8,17 +8,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. device  -- the card's name and power limit; no card is a failure.
 2. build   -- every CUDA source of the port (one nvcc each, started
               together) and the native tokenizer, from this checkout.
-3. kernels -- the score + top-k kernel's Q <= 4 block (registers, local
-              bytes, shared-memory bytes and blocks per SM) and Q >= 5
-              block (shared-memory bytes and blocks per SM at k=10 and
-              k=256), then the kernel against its plain PyTorch version on
-              the card at the serve path's shapes and at edge cases (Q=1
-              twins of the batch's), then pass 2 alone (``merge_topk_cuda``,
-              its blocks per level) bit-equal to the plain merge on the
-              real pass-1 lists of Q=1, k=256 (f32, bf16) and on crafted
-              lists at S = 1, 33, 1024, then timed beside the plain
-              version, a library yardstick and its bound, with pass 1 and
-              each level of pass 2 apart at Q=1 and at k=256.
+3. kernels -- the score + top-k kernel's Q <= 4 block and Q >= 5 block
+              (registers, local bytes, shared-memory bytes and blocks per
+              SM; the Q >= 5 block at k=10 and k=256, its two selections),
+              then the kernel against its plain PyTorch version on the card
+              at the serve path's shapes and at edge cases (Q=1 twins of
+              the batch's; Q >= 5 at k=256: bf16, Q=257, all scores tied,
+              n_docs < N), then pass 1 alone (``score_topk_candidates``)
+              at Q=32, k=256 bit-equal to the plain per-split top-k
+              (``candidates_reference``) on integer-valued inputs, then
+              pass 2 alone (``merge_topk_cuda``, its blocks per level)
+              bit-equal to the plain merge on the real pass-1 lists of Q=1,
+              k=256 (f32, bf16) and on crafted lists at S = 1, 33, 1024,
+              then timed beside the plain version, a library yardstick and
+              its bound, with pass 1 and each level of pass 2 apart at Q=1
+              and at k=100 and 256.
 4. serve   -- the default config (char tokenizer, max_len 64, lookup
               embedding 64, mean tower 128, f32) at full width with random
               weights from the seed, over ``--n-docs`` synthetic texts:
@@ -277,18 +281,27 @@ def pass2_ms(by_kernel: dict) -> float:
 
 def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     from twotowers_tpu_torch.kernels.topk import (
-        merge_occupancy, merge_plan, merge_topk_cuda, merge_topk_reference,
-        score_topk_candidates, score_topk_cuda, stream_occupancy, tiles_occupancy)
+        WIDE_K, candidates_reference, merge_occupancy, merge_plan, merge_topk_cuda,
+        merge_topk_reference, plan, score_topk_candidates, score_topk_cuda, stream_occupancy,
+        tiles_occupancy, tiles_smem)
     from twotowers_tpu_torch.ops.topk_score import score_topk_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
+    tiles_blocks = {}
     for dtype in (torch.float32, torch.bfloat16):
-        occupancy = {f"k{k}": dict(zip(("smem_bytes", "blocks_per_sm"),
-                                       tiles_occupancy(dev, dtype, k))) for k in (10, 256)}
+        # k=10 takes the narrow selection (one thread a query), k=256 the
+        # wide one (warps); each needs 2 blocks an SM and no spills
+        occupancy = {f"k{k}": {**tiles_occupancy(dev, dtype, k),
+                               "selection": "wide" if k > WIDE_K else "narrow"}
+                     for k in (10, 256)}
+        tiles_blocks[str(dtype)] = occupancy
         emit("kernels", case="Q >= 5 pass-1 block", dtype=str(dtype), **occupancy)
-        if occupancy["k10"]["blocks_per_sm"] < 2:
-            raise AssertionError(f"Q >= 5 pass 1: fewer than 2 blocks per SM at k=10: {occupancy}")
+        for k, block in zip((10, 256), occupancy.values()):
+            if (block["local_bytes"] or block["blocks_per_sm"] < 2
+                    or block["smem_bytes"] != tiles_smem(k)):
+                raise AssertionError(f"Q >= 5 pass 1 at k={k}: spills, fewer than 2 blocks "
+                                     f"per SM or not topk.tiles_smem's bytes: {block}")
         # the Q <= 4 pass keeps 8 rows x 16 bytes in flight a lane, 32 KB a
         # block, where the card needs ~18 KB an SM; its launch bound asks for
         # 3 blocks an SM at Q=1. It needs those, a block at Q=4, no spills
@@ -343,6 +356,16 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     check("all-zero query", docs, torch.zeros(2, 128, device=dev), 10)
     check("k=1", docs, queries[32], 1)
     check("k=256", docs, queries[32], 256)
+    # the Q >= 5 pass at large k (the wide selection)
+    check("k=256 bf16", docs_bf16, queries[32], 256)
+    check("q257 k=256", docs, unit(257, 128), 256)
+    check("n_docs < N k=256", padded, queries[32], 256, n_real=5000)
+    ones32 = torch.zeros(32, 16, device=dev)
+    ones32[:, 0] = 1.0
+    check("all scores tied q32 k=256", tied, ones32, 256)
+    got_i = score_topk_cuda(tied, ones32, 256)[1]
+    if not torch.equal(got_i.cpu(), torch.arange(256, dtype=torch.int32).repeat(32, 1)):
+        raise AssertionError("all scores tied at Q=32, k=256 must return docs 0..255")
     check("N=1000 < 4096", docs[:1000], queries[32], 10)
     ints = torch.randint(-2, 3, (n_docs // 4, 64), device=dev, generator=gen).float()
     qints = torch.randint(-2, 3, (64, 64), device=dev, generator=gen).float()
@@ -361,6 +384,23 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     check("k=256 q4 bf16", docs_bf16, unit(4, 128), 256)
     check("integer-valued q1", ints, qints[:1], 32, exact=True)
     check("integer-valued q4 bf16", ints.bfloat16(), qints[:4], 256, exact=True)
+
+    # pass 1 alone: the Q >= 5 pass's lists at Q=32, k=256 against the plain
+    # per-split top-k under the same plan, bit for bit (integer-valued)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        d, qs = ints.to(dtype), qints[:32]
+        got = score_topk_candidates(d, qs, 256)
+        split_len = plan(32, d.shape[0], sm_count,
+                         tiles_occupancy(dev, dtype, 256)["blocks_per_sm"])[2]
+        want = candidates_reference(d, qs, 256, split_len)
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"pass 1 q32 k256 {dtype}: not the plain per-split top-k")
+        real = torch.isfinite(want[0])  # the padding's -inf - -inf is nan
+        emit("kernels", case=f"pass-1 lists q32 k256 {dtype}", n=d.shape[0], d=64,
+             n_splits=got[0].shape[1], split_len=split_len, bit_equal=True,
+             max_abs_err=float((got[0][real] - want[0][real]).abs().max()))
 
     # pass 2 alone: the kernel's merge of the same lists as the plain
     # merge's, bit for bit; level 1 writes in place, so it gets a copy
@@ -407,7 +447,9 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                           (1, torch.bfloat16, 10), (4, torch.bfloat16, 10),
                           (32, torch.bfloat16, 10), (256, torch.bfloat16, 10),
                           (1, torch.float32, 256), (1, torch.bfloat16, 256),
-                          (32, torch.float32, 256), (256, torch.float32, 256)]:
+                          (32, torch.float32, 256), (256, torch.float32, 256),
+                          (32, torch.bfloat16, 256), (256, torch.bfloat16, 256),
+                          (32, torch.float32, 100)]:
         d = docs if dtype == torch.float32 else docs_bf16
         qs = queries[q]
         bound, bound_by = topk_bound(n_docs, 128, q, k, dtype)
@@ -417,7 +459,7 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
             "library_ms": cuda_ms(lambda: torch.topk(qs.to(dtype) @ d.T, k)),
             "bound_ms": bound, "bound_by": bound_by,
         }
-        if q == 1 or k == 256:  # pass 1 and each level of pass 2 apart
+        if q == 1 or k >= 100:  # pass 1 and each level of pass 2 apart
             row["device_ms_by_kernel"] = device_ms_by_kernel(lambda: score_topk_cuda(d, qs, k))
             row["pass2_ms"] = pass2_ms(row["device_ms_by_kernel"])
         timings[(q, dtype, k)] = row
@@ -427,7 +469,13 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
             "q1_f32": timings[(1, torch.float32, 10)],
             "q1_k256": {"f32": timings[(1, torch.float32, 256)],
                         "bf16": timings[(1, torch.bfloat16, 256)]},
-            "merge_blocks": merge_blocks}
+            "batch_large_k": {f"q{q} k{k} {str(dtype)[6:]}": timings[(q, dtype, k)]
+                              for q, dtype, k in ((32, torch.float32, 256),
+                                                  (256, torch.float32, 256),
+                                                  (32, torch.bfloat16, 256),
+                                                  (256, torch.bfloat16, 256),
+                                                  (32, torch.float32, 100))},
+            "tiles_blocks": tiles_blocks, "merge_blocks": merge_blocks}
 
 
 # ---- 4. serve -----------------------------------------------------------------
@@ -2324,6 +2372,13 @@ def main() -> int:
             "pass2_blocks": topk_row["merge_blocks"],
             "pass2_check": "merge_topk_cuda bit-equal to merge_topk_reference",
             "shape": {"n": args.n_docs, "d": 128, "q": 1, "k": 256}},
+        "large_k_batch": {**{name: {key: row[key] for key in (
+            "ms", "pass2_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for name, row in topk_row["batch_large_k"].items()},
+            "pass1_blocks": topk_row["tiles_blocks"],
+            "pass1_check": "score_topk_candidates bit-equal to candidates_reference at Q=32, "
+                           "k=256 (integer-valued, f32 and bf16)",
+            "shape": {"n": args.n_docs, "d": 128}},
         "pretrained_search_cli": pretrained["search_cli"], "pretrained_glove": pretrained["glove"],
         "card": card["nvidia_smi"],
     }, {

@@ -36,12 +36,15 @@ def case(name, seed=0):
         docs = normal(512, 16)
         docs[300:] = 50.0  # rows past n_docs carry huge scores
         return docs, normal(2, 16), 5, 300
-    if name == "ties":
+    if name in ("ties", "batch-ties"):
+        q, k = (2, 4) if name == "ties" else (9, 200)  # Q >= 5: the batch pass at large k
         docs = np.zeros((512, 8), np.float32)
         docs[:, 0] = 1.0  # every doc scores identically
-        queries = np.zeros((2, 8), np.float32)
+        queries = np.zeros((q, 8), np.float32)
         queries[:, 0] = 1.0
-        return docs, queries, 4, 512
+        return docs, queries, k, 512
+    if name == "batch-large-k":  # Q >= 5 at k=256: the warps' selection
+        return normal(1024, 32), normal(33, 32), 256, None
     if name == "zero-query":  # a text of out-of-vocabulary characters
         return normal(300, 16), np.zeros((1, 16), np.float32), 6, None
     if name == "k1":
@@ -52,7 +55,7 @@ def case(name, seed=0):
 
 
 CASES = ["random-512", "random-1024", "random-ragged", "random-small", "n_docs", "ties",
-         "zero-query", "k1", "k-eq-n"]
+         "zero-query", "k1", "k-eq-n", "batch-large-k", "batch-ties"]
 
 
 @pytest.mark.parametrize("shape,k,dtype,match", [
@@ -136,6 +139,62 @@ def test_plan_of_a_single_search_makes_one_wave_of_splits(q, n, blocks):
     assert n_splits <= wave and 2 * n_splits > wave
     if n >= 1_000_000:
         assert n_splits >= 0.97 * wave
+
+
+@pytest.mark.parametrize("k,nbytes", [(1, 37_888), (10, 40_192), (14, 41_216), (15, 41_472),
+                                      (32, 45_824), (100, 64_000), (256, 104_960)])
+def test_tiles_smem_counts_the_lists_of_the_selection_k_takes(k, nbytes):
+    """The Q >= 5 pass's shared bytes (score_topk.cu's tiles_smem): the
+    two staging buffers (37,376), then up to k = WIDE_K the narrow
+    selection's 32 lists of k values and indices and two counts a query,
+    above it the wide selection's 32 lists of values and indices with a
+    padding word after every 32 pairs: 37,376 + 8 x 32 x (256 + 8) at
+    k=256."""
+    assert topk.tiles_smem(k) == nbytes
+    assert (k > topk.WIDE_K) == (k >= 15)
+
+
+# the shared memory an H100 SM gives its blocks (228 KB), less 1 KB a block
+SM_SHARED, BLOCK_RESERVED = 233_472, 1024
+
+
+@pytest.mark.parametrize("k", [1, 10, 14, 15, 16, 32, 64, 100, 200, 255, 256])
+def test_tiles_smem_keeps_two_blocks_an_sm_at_every_k(k):
+    """Shared memory alone leaves room for 2 blocks an SM at every k the
+    kernel takes, and for 3 wherever the narrow selection serves (k=10's
+    occupancy, which the card's run asserts with the registers)."""
+    per_block = topk.tiles_smem(k) + BLOCK_RESERVED
+    assert 2 * per_block <= SM_SHARED
+    if k <= topk.WIDE_K:
+        assert 3 * per_block <= SM_SHARED
+
+
+CANDIDATE_CASES = [(1000, 10, 256, None), (1000, 100, 256, 700), (1000, 256, 512, None),
+                   (300, 256, 256, 260), (5, 3, 2, None)]
+
+
+@pytest.mark.parametrize("n,k,split_len,n_docs", CANDIDATE_CASES)
+def test_candidates_reference_is_each_splits_top_k(n, k, split_len, n_docs):
+    """The plain pass 1: each split's own top-k with global indices, best
+    first, (-inf, NO_INDEX) after a short split runs out, rows past n_docs
+    scored -1e30; pass 2's plain merge of its lists gives the plain
+    version's result bit for bit."""
+    rng = np.random.default_rng(n + k)
+    docs = torch.from_numpy(rng.integers(-2, 3, (n, 8)).astype(np.float32))
+    queries = torch.from_numpy(rng.integers(-2, 3, (6, 8)).astype(np.float32))
+    cand_v, cand_i = topk.candidates_reference(docs, queries, k, split_len, n_docs)
+    n_splits = -(-n // split_len)
+    assert cand_v.shape == cand_i.shape == (6, n_splits, k)
+    assert cand_v.dtype == torch.float32 and cand_i.dtype == torch.int32
+    for s in range(n_splits):
+        real = min(k, split_len, n - s * split_len)
+        idx = cand_i[:, s, :real]
+        assert bool(((idx >= s * split_len) & (idx < (s + 1) * split_len)).all())
+        assert bool((cand_i[:, s, real:] == topk.NO_INDEX).all())
+        assert bool(torch.isneginf(cand_v[:, s, real:]).all())
+    want = score_topk_reference(docs, queries, k, n_docs)
+    got = topk.merge_topk_reference(cand_v, cand_i)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 MERGE_PLAN_CASES = [(s, k) for s in (1, 2, 3, 31, 32, 33, 100, 391, 521, 1023, 1024)
@@ -286,6 +345,52 @@ def test_batch_kernel_crosses_tile_edges(cuda, q, dim, dtype, k, off):
     want_s, want_i = score_topk_reference(docs, queries, k)
     assert torch.equal(got_s, want_s)
     assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 33])
+@pytest.mark.parametrize("k", [100, 256])
+def test_batch_kernel_breaks_ties_to_the_lower_index(cuda, q, k):
+    """Every score ties at Q >= 5 and large k (the warps' selection): the
+    first k docs in order, bit for bit the plain version's."""
+    docs = torch.zeros(8192, 16, device=cuda)
+    docs[:, 0] = 1.0
+    queries = torch.zeros(q, 16, device=cuda)
+    queries[:, 0] = 1.0
+    _, got_i = _bit_equal(docs, queries, k)
+    assert torch.equal(got_i.cpu(), torch.arange(k, dtype=torch.int32).repeat(q, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,k", [(5, 14), (5, 15), (33, 100), (257, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_pass_one_lists_are_each_splits_top_k(cuda, q, k, dtype):
+    """Pass 1 alone (score_topk_candidates) at Q >= 5, on both sides of
+    WIDE_K, bit for bit the plain per-split top-k under the call's plan,
+    with rows past n_docs masked (integer-valued inputs)."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 31 + k)
+    docs = torch.randint(-2, 3, (100_003, 64), device=cuda, generator=gen).to(dtype)
+    queries = torch.randint(-2, 3, (q, 64), device=cuda, generator=gen).float()
+    n_docs = 99_000
+    got_v, got_i = topk.score_topk_candidates(docs, queries, k, n_docs)
+    per_sm = topk.tiles_occupancy(cuda, dtype, k)["blocks_per_sm"]
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split_len = topk.plan(q, docs.shape[0], sm_count, per_sm)[2]
+    want_v, want_i = topk.candidates_reference(docs, queries, k, split_len, n_docs)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 14, 15, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_block_fits_without_spills(cuda, k, dtype):
+    """Both instantiations of the Q >= 5 pass: no spills, at least 2 blocks
+    an SM, 3 at k=10, and the shared bytes of topk.tiles_smem."""
+    block = topk.tiles_occupancy(cuda, dtype, k)
+    assert block["local_bytes"] == 0
+    assert block["blocks_per_sm"] >= (3 if k == 10 else 2)
+    assert block["smem_bytes"] == topk.tiles_smem(k)
 
 
 @pytest.mark.cuda

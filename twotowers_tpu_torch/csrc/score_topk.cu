@@ -118,18 +118,56 @@
 //    tiles too) are issued before this chunk's FMAs and stored to the other
 //    of two buffers after them: one __syncthreads a chunk. cp.async and TMA
 //    cannot transpose or widen, so they are not used.
-//  - Selection: after a tile's D loop each thread tests its scores against
-//    its 8 queries' k-th best and queues those that pass, one half tile
-//    (128 docs) at a time, in a queue that reuses the staging buffers, and
-//    one thread per query insertion-sorts it into that query's top-k.
-//    Shared memory is
-//    37,376 + 256 k + 256 bytes: 40,192 at k=10, 103,168 at k=256.
+//  - Narrow selection (k <= WIDE_K, score_topk_tiles<T, false>): after a
+//    tile's D loop each thread tests its scores against its 8 queries'
+//    k-th best and queues those that pass, one half tile (128 docs) at a
+//    time, in a queue that reuses the staging buffers, and one thread per
+//    query insertion-sorts it into that query's top-k. Shared memory is
+//    37,376 + 256 k + 256 bytes: 40,192 at k=10.
 //  - Times at N=1M, D=128, k=10 (chip_smoke.py, NVIDIA H100 80GB HBM3,
 //    700.00 W, the old pass 1 and this one timed in one run): Q=256 f32
 //    5.52 ms with the pass it replaced, 2.57-2.58 ms with this kernel
 //    (bound 0.98 ms by operations); Q=256 bf16 6.95 -> 2.67-2.69; Q=32 f32
 //    1.02 -> 0.48. 155 registers (f32), 149 (bf16), no spills: 3 blocks an
-//    SM at k=10, 2 at k=256.
+//    SM.
+//  - Wide selection (k > WIDE_K, score_topk_tiles<T, true>). What bounds
+//    it is latency, not bytes or FLOPs: about 256 k / t of a query's
+//    scores in tile t beat its k-th best (k ln(tiles) + k in a split), and
+//    each must reach its place in a sorted list of k. The narrow selection
+//    did that with 32 lanes of warp 0, one a query, each shifted entry a
+//    dependent shared load and store, all 32 lanes on one bank (strides of
+//    128 and k = 256 words), while three warps waited at
+//    __syncthreads: 28.4 ms at Q=32, 53.5 at Q=256, k=256 (one-word padding
+//    alone: 14.6 and 31.5; kernels/topk_variants.py, variant "selection
+//    strides padded"). Here warp w selects for its own queries 8w..8w+7
+//    with __syncwarp alone (warp_select): a lane votes its 8 scores of each
+//    query against the k-th best (the pad (-inf, NO_INDEX) until the list
+//    is full), so a query with no survivor costs one vote; a query's
+//    survivors are queued in doc order by ballots and prefix counts,
+//    bitonic-sorted across the warp in registers (up to 8 a lane), and
+//    merged into the list at once by merge path (warp_merge: a ballot
+//    finds the first lane whose run changes, each lane one binary search
+//    and at most ceil(k/32) outputs held in registers, written back after a
+//    __syncwarp). Lists are skewed (a padding word after every 32 pairs)
+//    so runs of 8 fall on other banks. The next tile's first chunk is
+//    stored before the selection (buffer 0 is free then; the queues use
+//    buffer 1), so its staging registers are free during it. Pairs are
+//    unique, so the lists are the narrow selection's bit for bit.
+//    37,376 + 256 (k + ceil(k/32)) bytes: 104,960 at k=256, 2 blocks an SM.
+//    181 registers (f32), 168 (bf16), no spills.
+//  - WIDE_K = 14: between k=14 (Q=256: narrow 2.726 ms, wide 2.815) and
+//    k=16 (2.903, 2.846); at Q=32 the wide one is faster at every k (0.477
+//    against 0.485 at k=10), but it fits 2 blocks an SM against 3, which
+//    costs Q=256 (2.748 against 2.594 at k=10) (topk_variants.py
+//    --k-sweep, NVIDIA H100 80GB HBM3, 700.00 W).
+//  - Times at N=1M, D=128, both passes, against the narrow selection in
+//    one run (topk_variants.py --against, same card): k=256 Q=32 f32 28.55
+//    -> 0.898 ms, bf16 28.52 -> 0.793; Q=256 f32 53.72 -> 4.557, bf16
+//    53.77 -> 4.647; k=100 Q=32 f32 3.699 -> 0.625. PERF.md section 6 has
+//    them beside the bound and torch.topk of the matmul. Tried and left
+//    out: holding up to 32 survivors a query in shared memory between
+//    merges (fewer merges at Q=256, but slower at Q=32) and sorting with
+//    pair E lane + t in a lane (fewer shuffles, 244 registers, slower).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,6 +198,12 @@ constexpr int HALF = BN / 2;            // docs queued at once
 constexpr int STAGE = BK * BQ + BK * BS;  // floats of one staging buffer
 static_assert(2 * BQ * HALF <= 2 * STAGE, "the queue must fit in the staging buffers");
 static_assert(BS % 4 == 0 && STAGE % 4 == 0, "float4 reads need 16-byte rows");
+
+constexpr int MAX_K = 256;
+constexpr int WIDE_K = 14;              // score_topk_tiles: k above this selects by warps
+constexpr int MAX_RUN = MAX_K / 32;     // list entries a lane merges at most
+constexpr int WARP_SCRATCH = 2 * (BN + BN / 32);  // words of a warp's queue, skewed
+static_assert(4 * WARP_SCRATCH <= STAGE, "the warps' queues must fit in one staging buffer");
 
 // The 16 bytes of row `row` from column `col` of a (rows, dim) matrix, as
 // raw bits: zeros past `rows` or `dim`. `vec`: D and the pointer allow one
@@ -469,19 +513,225 @@ struct Stage {
     }
 };
 
-template <typename T>
+// Where pair e of a list lies in its shared plane: one word of padding
+// after every 32, so that threads whose runs start a power of two apart
+// (8 pairs at k = 256; pass 2's lists of k = 256 all start on bank 0) fall
+// on other banks.
+__device__ __forceinline__ int skew(int e) { return e + (e >> 5); }
+
+// Words between two of score_topk_tiles' skewed lists of k pairs.
+__host__ __device__ constexpr int list_stride(int k) { return k + (k + 31) / 32; }
+
+// Sort n <= 32 E pairs best first by ranks_before, pair g = 32 t + lane
+// in v[t] / x[t] (pairs from n on hold the pad (-inf, NO_INDEX)): a bitonic
+// network over 32 E pairs, or at E = 1 over the first P lanes, P the least
+// power of two >= n. Exchanges 32 pairs or more apart stay in a lane's
+// registers; the others go through shuffles.
+template <int E>
+__device__ __forceinline__ void warp_sort(float (&v)[E], int (&x)[E], int n, int lane) {
+#pragma unroll
+    for (int size = 2; size <= 32 * E; size <<= 1) {
+        if (E == 1 && size >= 2 * n) break;
+#pragma unroll
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+            for (int t = 0; t < E; ++t) {
+                // each run of `size` pairs sorts best first or, every other
+                // one, last; the lower pair of an exchange keeps the better
+                // pair in the first kind, the worse in the second
+                const bool best_first = ((32 * t + lane) & size) == 0;
+                if (stride >= 32) {
+                    const int u = t | (stride >> 5);
+                    if (u == t) continue;
+                    if (ranks_before(v[u], x[u], v[t], x[t]) == best_first) {
+                        const float tv = v[t];
+                        const int tx = x[t];
+                        v[t] = v[u]; x[t] = x[u];
+                        v[u] = tv; x[u] = tx;
+                    }
+                } else {
+                    const float ov = __shfl_xor_sync(FULL, v[t], stride);
+                    const int ox = __shfl_xor_sync(FULL, x[t], stride);
+                    const bool keep_best = ((lane & stride) == 0) == best_first;
+                    if (ranks_before(ov, ox, v[t], x[t]) == keep_best) { v[t] = ov; x[t] = ox; }
+                }
+            }
+        }
+    }
+}
+
+// Merge the n sorted pairs sv/sx (skewed) into the sorted list lv/lx of k
+// pairs (skewed), keeping its first k, with the whole warp. The list's
+// entries that rank before sv[0] stay where they are: a ballot over every
+// lane's last entry finds `base`, a multiple of ceil(k / 32) at or before
+// the first one that moves. The k - base outputs from there on are cut
+// into 32 runs; a lane finds where its run starts by one binary search
+// along the merge path's diagonal, merges it into registers, and writes it
+// back after a __syncwarp. Pairs are unique, so no tie rule is needed but
+// ranks_before's own.
+__device__ __forceinline__ void warp_merge(float* lv, int* lx, int k, const float* sv,
+                                           const int* sx, int n, int lane) {
+    const int run = (k + 31) >> 5;
+    const int last = skew(min(k, (lane + 1) * run) - 1);
+    const int base = run * __popc(__ballot_sync(FULL, ranks_before(lv[last], lx[last], sv[0],
+                                                                   sx[0])));  // skew(0) = 0
+    if (base >= k) return;  // sv[0] does not beat the k-th best: nothing moves
+    const int outs = k - base, per = (outs + 31) >> 5;
+    const int d0 = min(outs, lane * per), d1 = min(outs, d0 + per);
+    // i = how many of the first d0 outputs come from the list: lv[base +
+    // mid] is among them unless sv[d0 - 1 - mid] ranks before it
+    int lo = max(0, d0 - n), hi = d0;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const int ea = skew(base + mid), eb = skew(d0 - 1 - mid);
+        if (ranks_before(sv[eb], sx[eb], lv[ea], lx[ea])) hi = mid;
+        else lo = mid + 1;
+    }
+    // i + j = d < outs, so the list's head stays inside it
+    int i = lo, j = d0 - lo;
+    float ov[MAX_RUN];
+    int ox[MAX_RUN];
+#pragma unroll
+    for (int t = 0; t < MAX_RUN; ++t) {
+        if (d0 + t >= d1) break;
+        const int ea = skew(base + i), eb = skew(min(j, n - 1));
+        const float a = lv[ea], b = sv[eb];
+        const int ax = lx[ea], bx = sx[eb];
+        const bool take_b = j < n && ranks_before(b, bx, a, ax);
+        ov[t] = take_b ? b : a;
+        ox[t] = take_b ? bx : ax;
+        i += !take_b;
+        j += take_b;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < MAX_RUN; ++t) {
+        if (d0 + t >= d1) break;
+        const int e = skew(base + d0 + t);
+        lv[e] = ov[t];
+        lx[e] = ox[t];
+    }
+    __syncwarp();
+}
+
+// Sort a warp's queue of n <= 32 E survivors (skewed) in place, through
+// registers.
+template <int E>
+__device__ __forceinline__ void sort_queue(float* qv, int* qx, int n, int lane) {
+    float v[E];
+    int x[E];
+#pragma unroll
+    for (int t = 0; t < E; ++t) {
+        const int g = 32 * t + lane;
+        v[t] = g < n ? qv[skew(g)] : -INFINITY;
+        x[t] = g < n ? qx[skew(g)] : NO_INDEX;
+    }
+    warp_sort<E>(v, x, n, lane);
+    __syncwarp();  // every lane has read the queue before it is overwritten
+#pragma unroll
+    for (int t = 0; t < E; ++t) {
+        qv[skew(32 * t + lane)] = v[t];
+        qx[skew(32 * t + lane)] = x[t];
+    }
+    __syncwarp();
+}
+
+// One tile's wide selection for a warp's nq queries (8 at most; lists at
+// lists_v / lists_i + i * ls). acc[i][jj] is query i's score of doc t0 +
+// HALF * (jj / 4) + 4 * lane + jj % 4. Each lane tests its 8 scores of
+// each query against the query's k-th best (the pad while the list is not
+// full), so a query with no survivor costs a vote. The survivors of a
+// query are queued in doc order (ballots and prefix counts, no atomics),
+// read into registers (E = 1, 2, 4 or 8 a lane: 32 E >= the survivors),
+// sorted across the warp, written back over the queue and merged into the
+// list in one step.
+__device__ __forceinline__ void warp_select(const float (&acc)[8][8], float* lists_v,
+                                            int* lists_i, int ls, int k, float* scratch,
+                                            long long t0, long long end, long long n_docs,
+                                            int nq, int lane) {
+    float* qv = scratch;  // [BN] the queue, skewed, then its survivors sorted
+    int* qx = reinterpret_cast<int*>(qv + WARP_SCRATCH / 2);
+    unsigned pending = 0;         // bit i: query i has survivors, the same in every lane
+    unsigned long long pass = 0;  // bit 8 i + jj: this lane's score jj of query i survives
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int kth = i * ls + skew(k - 1);
+        const float kth_v = lists_v[kth];
+        const int kth_i = lists_i[kth];
+        unsigned mine = 0;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+            const long long doc = t0 + HALF * (jj >> 2) + 4 * lane + (jj & 3);
+            const float s = doc < n_docs ? acc[i][jj] : MASKED;
+            if (doc < end && ranks_before(s, (int)doc, kth_v, kth_i)) mine |= 1u << jj;
+        }
+        pass |= (unsigned long long)mine << (8 * i);
+        if (__any_sync(FULL, mine != 0) && i < nq) pending |= 1u << i;
+    }
+    const unsigned below = (1u << lane) - 1;
+    while (pending) {
+        const int i = __ffs(pending) - 1;
+        pending &= pending - 1;
+        const unsigned mine = (unsigned)(pass >> (8 * i)) & 0xffu;
+        float s[8];  // acc[i], by selects: i is not known at compile time here
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+            float x = acc[0][jj];
+#pragma unroll
+            for (int ii = 1; ii < 8; ++ii) x = i == ii ? acc[ii][jj] : x;
+            s[jj] = x;
+        }
+        // each survivor's place in the queue: half 0's docs in order, then half 1's
+        int at[2] = {0, 0}, m[2] = {0, 0};
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+            const unsigned b = __ballot_sync(FULL, (mine >> jj) & 1u);
+            at[jj >> 2] += __popc(b & below);
+            m[jj >> 2] += __popc(b);
+        }
+        at[1] += m[0];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+            if ((mine >> jj) & 1u) {
+                const long long doc = t0 + HALF * (jj >> 2) + 4 * lane + (jj & 3);
+                const int p = skew(at[jj >> 2]++);
+                qv[p] = doc < n_docs ? s[jj] : MASKED;
+                qx[p] = (int)doc;
+            }
+        }
+        __syncwarp();
+        const int n = m[0] + m[1];
+        if (n <= 32) sort_queue<1>(qv, qx, n, lane);
+        else if (n <= 64) sort_queue<2>(qv, qx, n, lane);
+        else if (n <= 128) sort_queue<4>(qv, qx, n, lane);
+        else sort_queue<8>(qv, qx, n, lane);
+        warp_merge(lists_v + i * ls, lists_i + i * ls, k, qv, qx, n, lane);
+    }
+}
+
+// WIDE (k > WIDE_K): each warp selects for its own 8 queries with
+// __syncwarp alone (warp_select); else one thread a query insertion-sorts
+// a queue of each half tile (see the note).
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS1)
 score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long long n,
                  int n_queries, int dim, int k, long long n_docs, long long split_len,
                  int vec, float* __restrict__ cand_v, int* __restrict__ cand_i) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);      // [2][STAGE] staging
+    // narrow selection
     float* queue_v = smem;                               // [BQ][HALF], over the staging
     int* queue_i = reinterpret_cast<int*>(smem + BQ * HALF);  // [BQ][HALF]
     float* top_v = smem + 2 * STAGE;                     // [BQ][k], sorted
     int* top_i = reinterpret_cast<int*>(top_v + BQ * k); // [BQ][k]
     int* queue_n = top_i + BQ * k;                       // [BQ]
     int* filled = queue_n + BQ;                          // [BQ]
+    // wide selection: lists [BQ][list_stride(k)], skewed, sorted, padded
+    // with (-inf, NO_INDEX); a warp's queue over staging buffer 1, which no
+    // warp reads or writes from a tile's last __syncthreads to the next one
+    const int ls = list_stride(k);
+    float* list_v = smem + 2 * STAGE;
+    int* list_i = reinterpret_cast<int*>(list_v + BQ * ls);
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
@@ -492,7 +742,12 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
     const long long end = min(begin + split_len, n);
     const int n_chunks = (dim + BK - 1) / BK;
 
-    if (tid < BQ) {
+    if constexpr (WIDE) {
+        for (int e = lane; e < 8 * ls; e += 32) {
+            list_v[8 * warp * ls + e] = -INFINITY;
+            list_i[8 * warp * ls + e] = NO_INDEX;
+        }
+    } else if (tid < BQ) {
         queue_n[tid] = 0;
         filled[tid] = 0;
     }
@@ -535,6 +790,18 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
             if (more) st.store(smem + (buf ^ 1) * STAGE, warp, lane);
             __syncthreads();
             buf ^= 1;
+        }
+
+        if constexpr (WIDE) {
+            // buffer 0 is free now and the selection uses buffer 1 alone, so
+            // the next tile's first chunk goes there first: its registers are
+            // free during the selection
+            if (t0 + BN < end) st.store(smem, warp, lane);
+            warp_select(acc, list_v + 8 * warp * ls, list_i + 8 * warp * ls, ls, k,
+                        smem + STAGE + warp * WARP_SCRATCH, t0, end, n_docs,
+                        min(8, n_queries - q0 - 8 * warp), lane);
+            if (t0 + BN < end) __syncthreads();
+            continue;
         }
 
         // queue every score that beats its query's current k-th best, one
@@ -593,6 +860,17 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
         }
     }
 
+    if constexpr (WIDE) {  // each warp its own queries' lists
+        for (int i = 0; i < 8 && q0 + 8 * warp + i < n_queries; ++i) {
+            const int ql = 8 * warp + i;
+            const long long o = ((long long)(q0 + ql) * gridDim.y + split) * k;
+            for (int r = lane; r < k; r += 32) {
+                cand_v[o + r] = list_v[ql * ls + skew(r)];
+                cand_i[o + r] = list_i[ql * ls + skew(r)];
+            }
+        }
+        return;
+    }
     for (int e = tid; e < BQ * k; e += THREADS1) {
         const int ql = e / k, r = e % k;
         if (q0 + ql >= n_queries) continue;
@@ -602,11 +880,6 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
         cand_i[o] = real ? top_i[e] : NO_INDEX;
     }
 }
-
-// Where pair e of a list buffer lies in its shared plane: one word of
-// padding after every 32, so that threads whose stretches start a power of
-// two apart (lists of k = 256 all start on bank 0) fall on other banks.
-__device__ __forceinline__ int skew(int e) { return e + (e >> 5); }
 
 // Words of a shared plane of n pairs' values or indices, padding included,
 // rounded up to whole 16-byte units.
@@ -833,13 +1106,22 @@ cudaError_t stream_occupancy(int n_queries, int dim, int k, int* blocks_per_sm, 
     }
 }
 
+// The wide selection's lists, or the narrow one's lists, queue counts and
+// fill counts, after the two staging buffers.
 size_t tiles_smem(int k) {
+    if (k > WIDE_K) return sizeof(float) * (2 * STAGE + 2 * BQ * list_stride(k));
     return sizeof(float) * (2 * STAGE + BQ * k) + sizeof(int) * (BQ * k + 2 * BQ);
 }
 
 template <typename T>
-cudaError_t tiles_attributes(int k) {
-    return cudaFuncSetAttribute(score_topk_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+using TilesKernel = void (*)(const T*, const T*, long long, int, int, int, long long, long long,
+                             int, float*, int*);
+
+// The instantiation of score_topk_tiles that takes k, its shared memory set.
+template <typename T>
+cudaError_t tiles_kernel(int k, TilesKernel<T>* kernel) {
+    *kernel = k > WIDE_K ? score_topk_tiles<T, true> : score_topk_tiles<T, false>;
+    return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)tiles_smem(k));
 }
 
@@ -847,23 +1129,32 @@ template <typename T>
 cudaError_t launch_tiles(const void* docs, const void* queries, long long n, int n_queries,
                          int dim, int k, long long n_docs, int n_splits, long long split_len,
                          float* cand_v, int* cand_i, cudaStream_t stream) {
-    cudaError_t err = tiles_attributes<T>(k);
+    if (k < 1 || k > MAX_K) return cudaErrorInvalidValue;
+    TilesKernel<T> kernel;
+    cudaError_t err = tiles_kernel<T>(k, &kernel);
     if (err != cudaSuccess) return err;
     const int vec = dim % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0
                     && reinterpret_cast<uintptr_t>(queries) % 16 == 0;
     const dim3 grid((n_queries + BQ - 1) / BQ, n_splits);
-    score_topk_tiles<T><<<grid, THREADS1, tiles_smem(k), stream>>>(
+    kernel<<<grid, THREADS1, tiles_smem(k), stream>>>(
         static_cast<const T*>(docs), static_cast<const T*>(queries), n, n_queries, dim, k,
         n_docs, split_len, vec, cand_v, cand_i);
     return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t tiles_occupancy(int k, int* blocks_per_sm) {
-    cudaError_t err = tiles_attributes<T>(k);
+cudaError_t tiles_occupancy(int k, int* blocks_per_sm, int* registers, int* local_bytes) {
+    if (k < 1 || k > MAX_K) return cudaErrorInvalidValue;
+    TilesKernel<T> kernel;
+    cudaError_t err = tiles_kernel<T>(k, &kernel);
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, score_topk_tiles<T>,
-                                                         THREADS1, tiles_smem(k));
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    *registers = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS1,
+                                                         tiles_smem(k));
 }
 
 template <typename K>
@@ -929,13 +1220,17 @@ int score_topk_merge_launch(float* cand_v, int* cand_i, int n_queries, int n_spl
                              static_cast<cudaStream_t>(stream));
 }
 
-// The dynamic shared memory of a score_topk_tiles block at this k, and the
-// blocks of it that fit on one SM of the current device. Returns the
-// cudaError_t (0 on success).
-int score_topk_tiles_occupancy(int docs_bf16, int k, int* smem_bytes, int* blocks_per_sm) {
+// The dynamic shared memory of a score_topk_tiles block at this k (of the
+// instantiation that k takes: k > WIDE_K the wide selection), the blocks of
+// it that fit on one SM of the current device, and the registers a thread
+// and the local memory a thread (spills) that the compiler gave it.
+// Returns the cudaError_t (0 on success).
+int score_topk_tiles_occupancy(int docs_bf16, int k, int* smem_bytes, int* blocks_per_sm,
+                               int* registers, int* local_bytes) {
     *smem_bytes = (int)tiles_smem(k);
-    return docs_bf16 ? (int)tiles_occupancy<__nv_bfloat16>(k, blocks_per_sm)
-                     : (int)tiles_occupancy<float>(k, blocks_per_sm);
+    return docs_bf16 ? (int)tiles_occupancy<__nv_bfloat16>(k, blocks_per_sm, registers,
+                                                           local_bytes)
+                     : (int)tiles_occupancy<float>(k, blocks_per_sm, registers, local_bytes);
 }
 
 // The same for a score_topk_stream block of n_queries (1..4) at this dim and

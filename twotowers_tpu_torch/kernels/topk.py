@@ -14,13 +14,15 @@ launches on the current stream, allocates outputs and scratch with
 Pass 1 leaves each query's ``(n_splits, k)`` sorted lists in scratch;
 pass 2 merges them by a fixed tree (``merge_plan``). ``merge_topk_cuda``
 runs pass 2 alone and ``merge_topk_reference`` is its plain version, for
-the checks; ``score_topk_candidates`` runs pass 1 alone.
+the checks; ``score_topk_candidates`` runs pass 1 alone and
+``candidates_reference`` is its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,6 +35,8 @@ MAX_SPLITS = 1024   # score_topk.cu:MAX_SPLITS
 STREAM_ROWS = 128   # Q <= 4 splits are a whole number of these rows: one block
                     # iteration of score_topk_stream reads 64 (f32) or 128 (bf16)
 BATCH_TILE_N = 256  # score_topk.cu:BN, doc rows per tile of the Q >= 5 pass 1
+WIDE_K = 14         # score_topk.cu:WIDE_K: at Q >= 5, k above it selects by warps
+STAGING_BYTES = 37_376  # score_topk.cu: 2 * STAGE floats of the Q >= 5 pass 1
 
 MERGE_SMEM_BUDGET = 110 * 1024  # shared bytes of a pass-2 block, at most: 2 blocks an SM
 NO_INDEX = 2**31 - 1  # the index of a padding pair, beside the value -inf
@@ -67,6 +71,17 @@ def plan(n_queries: int, n: int, sm_count: int,
     n_splits = max(1, min(want, tiles, MAX_SPLITS))
     split_len = -(-tiles // n_splits) * tile
     return rows, -(-n // split_len), split_len
+
+
+def tiles_smem(k: int) -> int:
+    """Shared bytes of a Q >= 5 pass-1 block at this ``k``
+    (``score_topk.cu:tiles_smem``): the staging buffers, then the lists of
+    the instantiation that k takes. Above ``WIDE_K`` the wide selection's
+    32 lists of values and indices, each with a padding word after every 32
+    pairs; else the narrow one's lists and two counts a query."""
+    if k > WIDE_K:
+        return STAGING_BYTES + 8 * 32 * (k + -(-k // 32))
+    return STAGING_BYTES + 8 * 32 * k + 8 * 32
 
 
 def merge_smem(lists: int, k: int) -> int:
@@ -135,7 +150,7 @@ def _lib() -> ctypes.CDLL:
                        ptr, ptr, ptr, ptr, i32, ptr]
         fn.restype = i32
         occ = lib.score_topk_tiles_occupancy
-        occ.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        occ.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 4
         occ.restype = i32
         occ = lib.score_topk_stream_occupancy
         occ.argtypes = [i32, i32, i32, i32] + [ctypes.POINTER(i32)] * 4
@@ -149,23 +164,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-_occupancy: Dict[Tuple[int, bool, int], Tuple[int, int]] = {}
+_OCCUPANCY_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes")
+_occupancy: Dict[Tuple[int, bool, int], Dict[str, int]] = {}
 _stream_occupancy: Dict[Tuple[int, bool, int, int, int], Dict[str, int]] = {}
 
 
-def tiles_occupancy(device: torch.device, dtype: torch.dtype, k: int) -> Tuple[int, int]:
-    """(shared-memory bytes, blocks per SM) of a Q >= 5 pass-1 block for
-    docs of ``dtype`` at this ``k`` on the card, as the CUDA runtime
-    reports them (registers and shared memory both count)."""
+def tiles_occupancy(device: torch.device, dtype: torch.dtype, k: int) -> Dict[str, int]:
+    """A Q >= 5 pass-1 block for docs of ``dtype`` at this ``k`` on the
+    card (the instantiation that k takes: the wide selection above
+    ``WIDE_K``), as the CUDA runtime reports it: ``smem_bytes``,
+    ``blocks_per_sm`` (registers and shared memory both count),
+    ``registers`` a thread and ``local_bytes`` a thread (spills)."""
     key = (torch.device(device).index or 0, dtype == torch.bfloat16, k)
     if key not in _occupancy:
-        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        out = [ctypes.c_int() for _ in range(4)]
         with torch.cuda.device(device):
-            err = _lib().score_topk_tiles_occupancy(int(key[1]), k, ctypes.byref(smem),
-                                                    ctypes.byref(blocks))
+            err = _lib().score_topk_tiles_occupancy(int(key[1]), k, *map(ctypes.byref, out))
         if err != 0:
             raise RuntimeError(f"score_topk occupancy query failed with cudaError_t {err}")
-        _occupancy[key] = (smem.value, blocks.value)
+        _occupancy[key] = dict(zip(_OCCUPANCY_KEYS, (o.value for o in out)))
     return _occupancy[key]
 
 
@@ -184,8 +201,7 @@ def stream_occupancy(device: torch.device, dtype: torch.dtype, n_queries: int, d
                                                      *map(ctypes.byref, out))
         if err != 0:
             raise RuntimeError(f"score_topk occupancy query failed with cudaError_t {err}")
-        _stream_occupancy[key] = dict(zip(("smem_bytes", "blocks_per_sm", "registers",
-                                           "local_bytes"), (o.value for o in out)))
+        _stream_occupancy[key] = dict(zip(_OCCUPANCY_KEYS, (o.value for o in out)))
     return _stream_occupancy[key]
 
 
@@ -201,8 +217,7 @@ def merge_occupancy(device: torch.device, final_level: bool, lists: int,
                                                 *map(ctypes.byref, out))
     if err != 0:
         raise RuntimeError(f"score_topk merge occupancy query failed with cudaError_t {err}")
-    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"),
-                    (o.value for o in out)))
+    return dict(zip(_OCCUPANCY_KEYS, (o.value for o in out)))
 
 
 def _launch(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optional[int],
@@ -220,10 +235,10 @@ def _launch(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Opt
     n_queries = queries.shape[0]
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
     if n_queries > 4:
-        per_sm = tiles_occupancy(device, doc_matrix.dtype, k)[1]
+        block = tiles_occupancy(device, doc_matrix.dtype, k)
     else:
-        per_sm = stream_occupancy(device, doc_matrix.dtype, n_queries, dim, k)["blocks_per_sm"]
-    rows, n_splits, split_len = plan(n_queries, n, sm_count, per_sm)
+        block = stream_occupancy(device, doc_matrix.dtype, n_queries, dim, k)
+    rows, n_splits, split_len = plan(n_queries, n, sm_count, block["blocks_per_sm"])
     group = merge_plan(n_splits, k)[0] if merge else 0
 
     cand_v = torch.empty((n_queries, n_splits, k), dtype=torch.float32, device=device)
@@ -263,8 +278,38 @@ def score_topk_candidates(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 alone on the card: the (Q, n_splits, k) sorted lists, padded
     with (-inf, ``NO_INDEX``), that pass 2 of ``score_topk_cuda`` would
-    merge. For the checks of pass 2; counted in ``LAUNCHES``."""
+    merge. For the checks of pass 1 and pass 2; counted in ``LAUNCHES``."""
     return _launch(doc_matrix, queries, k, n_docs, merge=False)[:2]
+
+
+def candidates_reference(
+    doc_matrix: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    split_len: int,
+    n_docs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch pass 1: for each split of ``split_len`` docs (the last
+    one shorter), each query's top-k of it as the plain version ranks them
+    (``ops.topk_score.score_topk_reference``), with global indices, and
+    (-inf, ``NO_INDEX``) after a split's docs run out. (Q, n_splits, k), as
+    ``score_topk_candidates`` leaves them under a plan of that
+    ``split_len``. Used by the tests and the checks only."""
+    from ..ops.topk_score import score_topk_reference
+
+    n = doc_matrix.shape[0]
+    n_docs = n if n_docs is None else int(n_docs)
+    n_splits = -(-n // split_len)
+    cand_v = torch.full((queries.shape[0], n_splits, k), -math.inf, device=doc_matrix.device)
+    cand_i = torch.full_like(cand_v, NO_INDEX, dtype=torch.int32)
+    for s in range(n_splits):
+        begin = s * split_len
+        part = doc_matrix[begin:begin + split_len]
+        real = min(k, part.shape[0])
+        v, i = score_topk_reference(part, queries, real, n_docs - begin)
+        cand_v[:, s, :real] = v
+        cand_i[:, s, :real] = i + begin
+    return cand_v, cand_i
 
 
 def _check_candidates(cand_v: torch.Tensor, cand_i: torch.Tensor) -> None:

@@ -1,6 +1,7 @@
 """Time variants of the score + top-k kernel in turns on one card.
 
     python -m twotowers_tpu_torch.kernels.topk_variants [--against DIR] [--only NAME ...]
+                                                        [--k-sweep]
 
 Each variant is ``csrc/score_topk.cu`` with one constant or launch bound
 rewritten, compiled by ``nvcc`` (all at once) into ``build/topk_variants/``,
@@ -12,17 +13,23 @@ the count that the plan once fixed, and a source without
 ``score_topk_merge_launch`` (pass 2 as one block a query, before the merge
 tree) is launched without a merge group. ``--only`` keeps the named
 variants. Each variant is first held bit-equal to the plain version on
-integer-valued inputs (Q=1, 4 and 257 at k=10, Q=1 and 257 at k=256), then
-timed with CUDA events at N=1M, D=128 (``SHAPES``: Q=1 and 4 in f32 and
-bf16, Q=1 at k=256 in f32 and bf16, Q=32 in f32 and bf16, Q=256 in f32 and
-bf16, Q=32 and 256 at k=256 in f32; k=10 elsewhere) in the order A B C ...
-C B A; a time is the mean of its two turns. Prints one JSON line per
-variant, with the device ms by kernel (``torch.profiler``: pass 1 and each
-level of pass 2) at every shape for the shipped kernel and "against"; then
-the opcode counts of the shipped f32 passes 1 (``cuobjdump -sass``) and
-the SM clock and power that ``nvidia-smi`` samples while the shipped
-kernel runs Q=256 f32 and Q=1 f32 for a few seconds each; last the card's
-name and power limit.
+integer-valued inputs (Q=1, 4 and 257 at k=10, Q=1 and 257 at k=256, Q=33
+at k=100, Q=5 at k=33), then timed with CUDA events at N=1M, D=128
+(``SHAPES``: Q=1 and 4 in f32 and bf16, Q=1 at k=256 in f32 and bf16, Q=32
+in f32 and bf16, Q=256 in f32 and bf16, Q=32 and 256 at k=256 in f32 and
+bf16, Q=32 at k=100 in f32; k=10 elsewhere; ``--k-sweep`` takes
+``K_SWEEP`` instead, Q=32 and 256 in f32 at k = 10 to 32, where the two
+selections of the Q >= 5 pass meet) in the order A B C ... C B A; a time
+is the mean of its two turns. Prints one JSON line per variant, with its
+Q >= 5 blocks (shared bytes, blocks per SM, registers and local bytes at
+k=10 and k=256; the last two null for a source that does not report
+them) and the device ms by kernel (``torch.profiler``: pass 1 and each
+level of pass 2) at every shape for the shipped kernel and "against"
+(before the timing, a line holds their outputs bit-equal at every shape,
+and the run fails where they are not); then the opcode counts of the
+shipped f32 passes 1 (``cuobjdump -sass``) and the SM clock and power
+that ``nvidia-smi`` samples while the shipped kernel runs Q=256 f32 and
+Q=1 f32 for a few seconds each; last the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -46,7 +53,9 @@ K, N, DIM = 10, 1_000_000, 128
 SHAPES = [(1, torch.float32, K), (1, torch.bfloat16, K), (4, torch.float32, K),
           (4, torch.bfloat16, K), (1, torch.float32, 256), (1, torch.bfloat16, 256),
           (32, torch.float32, K), (32, torch.bfloat16, K), (256, torch.float32, K),
-          (256, torch.bfloat16, K), (32, torch.float32, 256), (256, torch.float32, 256)]
+          (256, torch.bfloat16, K), (32, torch.float32, 256), (256, torch.float32, 256),
+          (32, torch.bfloat16, 256), (256, torch.bfloat16, 256), (32, torch.float32, 100)]
+K_SWEEP = [(q, torch.float32, k) for q in (32, 256) for k in (10, 12, 14, 16, 24, 32)]
 
 
 def one_full_wave(q, n, sm, per_sm):
@@ -84,6 +93,33 @@ VARIANTS = {
                             "constexpr int MERGE_THREADS = 256;")], topk.plan),
     "merge 1024 threads": ([("constexpr int MERGE_THREADS = 512;",
                              "constexpr int MERGE_THREADS = 1024;")], topk.plan),
+    # the narrow selection's one-thread-a-query insertion (k <= WIDE_K) with
+    # its queues and lists one word longer than a power of two, so that the
+    # 32 lanes of warp 0 (one query each) fall on other banks
+    "selection strides padded": ([
+        ("queue_i = reinterpret_cast<int*>(smem + BQ * HALF);",
+         "queue_i = reinterpret_cast<int*>(smem + BQ * (HALF + 1));"),
+        ("queue_v[ql * HALF + p] = s;", "queue_v[ql * (HALF + 1) + p] = s;"),
+        ("queue_i[ql * HALF + p] = (int)doc;", "queue_i[ql * (HALF + 1) + p] = (int)doc;"),
+        ("queue_v[tid * HALF + c]", "queue_v[tid * (HALF + 1) + c]"),
+        ("queue_i[tid * HALF + c]", "queue_i[tid * (HALF + 1) + c]"),
+        ("int* top_i = reinterpret_cast<int*>(top_v + BQ * k);",
+         "int* top_i = reinterpret_cast<int*>(top_v + BQ * (k + 1));"),
+        ("int* queue_n = top_i + BQ * k;", "int* queue_n = top_i + BQ * (k + 1);"),
+        ("top_v[ql * k + k - 1]", "top_v[ql * (k + 1) + k - 1]"),
+        ("top_i[ql * k + k - 1]", "top_i[ql * (k + 1) + k - 1]"),
+        ("float* tv = top_v + tid * k;", "float* tv = top_v + tid * (k + 1);"),
+        ("int* ti = top_i + tid * k;", "int* ti = top_i + tid * (k + 1);"),
+        ("real ? top_v[e]", "real ? top_v[ql * (k + 1) + r]"),
+        ("real ? top_i[e]", "real ? top_i[ql * (k + 1) + r]"),
+        ("(2 * STAGE + BQ * k) + sizeof(int) * (BQ * k + 2 * BQ)",
+         "(2 * STAGE + BQ * (k + 1)) + sizeof(int) * (BQ * (k + 1) + 2 * BQ)"),
+    ], topk.plan),
+    # where the Q >= 5 pass switches from one thread a query to warps
+    "wide selection at every k": ([("constexpr int WIDE_K = 14;", "constexpr int WIDE_K = 0;")],
+                                  topk.plan),
+    "narrow selection at every k": ([("constexpr int WIDE_K = 14;",
+                                      "constexpr int WIDE_K = 256;")], topk.plan),
 }
 AGAINST = "against"
 
@@ -167,21 +203,22 @@ def launcher(lib: ctypes.CDLL, plan):
     occupancy = {}
 
     def per_sm(dtype, q, k=K):
-        """(shared-memory bytes, blocks per SM[, registers, local bytes]) of
-        the pass that takes Q=q."""
+        """(shared-memory bytes, blocks per SM, registers, local bytes) of
+        the pass that takes Q=q; the last two None where the source does
+        not report them."""
         key = (dtype, min(q, 5), k)
         bf16 = int(dtype == torch.bfloat16)
         if key not in occupancy:
-            out = [ctypes.c_int() for _ in range(4)]
-            if q > 4:
-                err = lib.score_topk_tiles_occupancy(bf16, k, *map(ctypes.byref, out[:2]))
+            out = [ctypes.c_int(-1) for _ in range(4)]
+            if q > 4:  # an older source reads the first two pointers, ignores the rest
+                err = lib.score_topk_tiles_occupancy(bf16, k, *map(ctypes.byref, out))
             elif hasattr(lib, "score_topk_stream_occupancy"):
                 err = lib.score_topk_stream_occupancy(bf16, q, DIM, k, *map(ctypes.byref, out))
             else:  # a source whose Q <= 4 plan aimed at a fixed 8 blocks an SM
                 err, out[1].value = 0, 8
             if err != 0:
                 raise RuntimeError(f"occupancy query failed: cudaError_t {err}")
-            occupancy[key] = tuple(o.value for o in (out if q <= 4 else out[:2]))
+            occupancy[key] = tuple(o.value if o.value >= 0 else None for o in out)
         return occupancy[key]
 
     def run(docs, queries, k=K):
@@ -247,7 +284,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--against", help="root of another checkout whose kernel to time too")
     parser.add_argument("--only", nargs="*", help="the variants to keep (default: all)")
+    parser.add_argument("--k-sweep", action="store_true",
+                        help="time K_SWEEP (Q >= 5 at k = 10 to 32) instead of SHAPES")
     args = parser.parse_args()
+    shapes = K_SWEEP if args.k_sweep else SHAPES
     if not torch.cuda.is_available():
         raise SystemExit("topk_variants: needs a CUDA card")
     if args.only:
@@ -261,23 +301,35 @@ def main() -> int:
         ints = torch.randint(-2, 3, (100_003, 128), device=dev, generator=gen).float()
         qints = torch.randint(-2, 3, (257, 128), device=dev, generator=gen).float()
         for dtype in (torch.float32, torch.bfloat16):
-            for q, k in ((1, K), (4, K), (257, K), (1, 256), (257, 256)):
+            for q, k in ((1, K), (4, K), (257, K), (1, 256), (257, 256), (33, 100), (5, 33)):
                 got = run(ints.to(dtype), qints[:q].to(dtype), k)
                 want = score_topk_reference(ints.to(dtype), qints[:q], k)
                 if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                     raise AssertionError(f"variant {name!r} {dtype} Q={q} k={k}: not the "
                                          "plain version's result")
         runs[name] = (run, {"ptxas": ptxas, "occupancy_f32_bf16": {
-            f"q{q}": [per_sm(torch.float32, q), per_sm(torch.bfloat16, q)] for q in (1, 4, 5)}})
+            f"q{q} k{k}": [per_sm(torch.float32, q, k), per_sm(torch.bfloat16, q, k)]
+            for q, k in ((1, K), (4, K), (5, K), (5, 256))}})
     docs = torch.randn(N, DIM, device=dev, generator=gen)
     docs /= docs.norm(dim=1, keepdim=True)
     inputs = {dtype: docs.to(dtype) for dtype in (torch.float32, torch.bfloat16)}
     queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in (1, 4, 32, 256)}
-    order = list(runs) + list(runs)[::-1]
     label = lambda q, dtype, k: f"q{q} {dtype} k{k}"  # noqa: E731
-    times = {name: {label(*shape): [] for shape in SHAPES} for name in runs}
+    if AGAINST in runs:  # the shipped kernel's output is "against"'s, bit for bit
+        same = {}
+        for q, dtype, k in shapes:
+            d, qs = inputs[dtype], queries[q].to(dtype)
+            got, want = runs["shipped"][0](d, qs, k), runs[AGAINST][0](d, qs, k)
+            same[label(q, dtype, k)] = (torch.equal(got[0].view(torch.int32),
+                                                    want[0].view(torch.int32))
+                                        and torch.equal(got[1], want[1]))
+        print(json.dumps({"bit_equal_to_against": same}), flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"the shipped kernel's output is not {AGAINST!r}'s: {same}")
+    order = list(runs) + list(runs)[::-1]
+    times = {name: {label(*shape): [] for shape in shapes} for name in runs}
     for name in order:
-        for q, dtype, k in SHAPES:
+        for q, dtype, k in shapes:
             d, qs = inputs[dtype], queries[q].to(dtype)
             times[name][label(q, dtype, k)].append(event_ms(lambda: runs[name][0](d, qs, k)))
     for name, (run, info) in runs.items():
@@ -286,9 +338,9 @@ def main() -> int:
             info["device_ms_by_kernel"] = {
                 label(q, dtype, k): device_ms_by_kernel(
                     lambda: run(inputs[dtype], queries[q].to(dtype), k))
-                for q, dtype, k in SHAPES}
+                for q, dtype, k in shapes}
         print(json.dumps({"variant": name, "ms": ms, "turns": times[name], **info}), flush=True)
-    for kernel in ("score_topk_tilesIf", "score_topk_streamIfLi1"):
+    for kernel in ("score_topk_tilesIfLb0", "score_topk_tilesIfLb1", "score_topk_streamIfLi1"):
         print(json.dumps({f"sass_opcodes shipped {kernel}":
                           sass_opcodes(libs["shipped"][2], kernel)}), flush=True)
     for q in (256, 1):
