@@ -281,14 +281,14 @@ def pass2_ms(by_kernel: dict) -> float:
 
 def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     from twotowers_tpu_torch.kernels.topk import (
-        WIDE_K, candidates_reference, merge_occupancy, merge_plan, merge_topk_cuda,
-        merge_topk_reference, plan, score_topk_candidates, score_topk_cuda, stream_occupancy,
-        tiles_occupancy, tiles_smem)
+        STREAM_WIDE_K, WIDE_K, candidates_reference, merge_occupancy, merge_plan,
+        merge_topk_cuda, merge_topk_reference, plan, score_topk_candidates, score_topk_cuda,
+        stream_occupancy, stream_smem, tiles_occupancy, tiles_smem)
     from twotowers_tpu_torch.ops.topk_score import score_topk_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tiles_blocks = {}
+    tiles_blocks, stream_blocks = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         # k=10 takes the narrow selection (one thread a query), k=256 the
         # wide one (warps); each needs 2 blocks an SM and no spills
@@ -304,14 +304,19 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                                      f"per SM or not topk.tiles_smem's bytes: {block}")
         # the Q <= 4 pass keeps 8 rows x 16 bytes in flight a lane, 32 KB a
         # block, where the card needs ~18 KB an SM; its launch bound asks for
-        # 3 blocks an SM at Q=1. It needs those, a block at Q=4, no spills
+        # 3 blocks an SM at Q=1 with the narrow selection (k <= STREAM_WIDE_K),
+        # 2 with the wide one. It needs those, a block at Q=4, no spills
         for q, k in ((1, 10), (4, 10), (1, 256), (4, 256)):
-            block = stream_occupancy(dev, dtype, q, 128, k)
+            block = {**stream_occupancy(dev, dtype, q, 128, k),
+                     "selection": "wide" if k > STREAM_WIDE_K else "narrow"}
+            stream_blocks[f"{str(dtype)[6:]} q{q} k{k}"] = block
             emit("kernels", case="Q <= 4 pass-1 block", dtype=str(dtype), q=q, d=128, k=k,
                  in_flight_bytes_per_sm=block["blocks_per_sm"] * 8 * 32 * 8 * 16, **block)
-            if block["local_bytes"] or block["blocks_per_sm"] < (3 if (q, k) == (1, 10) else 1):
-                raise AssertionError(f"Q <= 4 pass 1 at Q={q}, k={k}: spills or too few "
-                                     f"blocks per SM: {block}")
+            need = (3 if k <= STREAM_WIDE_K else 2) if q == 1 else 1
+            if (block["local_bytes"] or block["blocks_per_sm"] < need
+                    or block["smem_bytes"] != stream_smem(q, 128, k)):
+                raise AssertionError(f"Q <= 4 pass 1 at Q={q}, k={k}: spills, too few blocks "
+                                     f"per SM or not topk.stream_smem's bytes: {block}")
 
     def unit(*shape):
         x = torch.randn(*shape, device=dev, generator=gen)
@@ -384,6 +389,31 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     check("k=256 q4 bf16", docs_bf16, unit(4, 128), 256)
     check("integer-valued q1", ints, qints[:1], 32, exact=True)
     check("integer-valued q4 bf16", ints.bfloat16(), qints[:4], 256, exact=True)
+    # the Q <= 4 pass's wide selection (k > STREAM_WIDE_K): survivors batched
+    # a warp, the warp lists merged by a tree; and both sides of the threshold
+    queries[4] = unit(4, 128)
+    check("k=256 q2", docs, unit(2, 128), 256)
+    check("k=256 q3 bf16", docs_bf16, unit(3, 128), 256)
+    for q in (1, 4):
+        for k in (STREAM_WIDE_K, STREAM_WIDE_K + 1):
+            check(f"k={k} q{q} (STREAM_WIDE_K {STREAM_WIDE_K})", docs, queries[q], k)
+        check(f"all scores tied q{q} k=256", tied, ones[:q], 256)
+        got_i = score_topk_cuda(tied, ones[:q], 256)[1]
+        if not torch.equal(got_i.cpu(), torch.arange(256, dtype=torch.int32).repeat(q, 1)):
+            raise AssertionError(f"all scores tied at Q={q}, k=256 must return docs 0..255")
+        check(f"integer-valued q{q} k=256", ints, qints[:q], 256, exact=True)
+        # zero rows of either sign score 0 and tie; the rest score below
+        signed = -torch.rand(8192, 16, device=dev, generator=gen)
+        zero = torch.rand(8192, device=dev, generator=gen) < 0.25
+        signed[zero] = torch.where(torch.rand(int(zero.sum()), 16, device=dev, generator=gen) < 0.5,
+                                   -0.0, 0.0)
+        check(f"signed zeros tied q{q} k=256", signed, torch.ones(q, 16, device=dev), 256,
+              exact=True)
+        got_i = score_topk_cuda(signed, torch.ones(q, 16, device=dev), 256)[1]
+        if not torch.equal(got_i.cpu(), zero.nonzero()[:256, 0].int().cpu().repeat(q, 1)):
+            raise AssertionError(f"zero scores of either sign at Q={q} must tie by index")
+    check("split shorter than k q1 k=256", docs[:1000], queries[1], 256)
+    check("n_docs < N q1 k=256", padded, queries[1], 256, n_real=5000)
 
     # pass 1 alone: the Q >= 5 pass's lists at Q=32, k=256 against the plain
     # per-split top-k under the same plan, bit for bit (integer-valued)
@@ -441,7 +471,6 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
         merge_check(f"crafted s{s_} k{k_} {kind}", *crafted_lists(4, s_, k_, kind, merge_gen))
 
     timings = {}
-    queries[4] = unit(4, 128)
     for (q, dtype, k) in [(1, torch.float32, 10), (4, torch.float32, 10),
                           (32, torch.float32, 10), (256, torch.float32, 10),
                           (1, torch.bfloat16, 10), (4, torch.bfloat16, 10),
@@ -449,7 +478,8 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                           (1, torch.float32, 256), (1, torch.bfloat16, 256),
                           (32, torch.float32, 256), (256, torch.float32, 256),
                           (32, torch.bfloat16, 256), (256, torch.bfloat16, 256),
-                          (32, torch.float32, 100)]:
+                          (32, torch.float32, 100), (4, torch.float32, 256),
+                          (4, torch.bfloat16, 256), (1, torch.float32, 100)]:
         d = docs if dtype == torch.float32 else docs_bf16
         qs = queries[q]
         bound, bound_by = topk_bound(n_docs, 128, q, k, dtype)
@@ -468,14 +498,18 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     return {"max_abs_err": max(errs), **timings[(256, torch.float32, 10)],
             "q1_f32": timings[(1, torch.float32, 10)],
             "q1_k256": {"f32": timings[(1, torch.float32, 256)],
-                        "bf16": timings[(1, torch.bfloat16, 256)]},
+                        "bf16": timings[(1, torch.bfloat16, 256)],
+                        "q4 f32": timings[(4, torch.float32, 256)],
+                        "q4 bf16": timings[(4, torch.bfloat16, 256)],
+                        "k100 f32": timings[(1, torch.float32, 100)]},
             "batch_large_k": {f"q{q} k{k} {str(dtype)[6:]}": timings[(q, dtype, k)]
                               for q, dtype, k in ((32, torch.float32, 256),
                                                   (256, torch.float32, 256),
                                                   (32, torch.bfloat16, 256),
                                                   (256, torch.bfloat16, 256),
                                                   (32, torch.float32, 100))},
-            "tiles_blocks": tiles_blocks, "merge_blocks": merge_blocks}
+            "tiles_blocks": tiles_blocks, "stream_blocks": stream_blocks,
+            "merge_blocks": merge_blocks}
 
 
 # ---- 4. serve -----------------------------------------------------------------
@@ -2369,9 +2403,11 @@ def main() -> int:
         "large_k_search": {**{name: {key: row[key] for key in (
             "ms", "pass2_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for name, row in topk_row["q1_k256"].items()},
+            "pass1_blocks": topk_row["stream_blocks"],
             "pass2_blocks": topk_row["merge_blocks"],
             "pass2_check": "merge_topk_cuda bit-equal to merge_topk_reference",
-            "shape": {"n": args.n_docs, "d": 128, "q": 1, "k": 256}},
+            "shape": {"n": args.n_docs, "d": 128, "q": 1, "k": 256,
+                      "q4": {"q": 4, "k": 256}, "k100": {"q": 1, "k": 100}}},
         "large_k_batch": {**{name: {key: row[key] for key in (
             "ms", "pass2_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for name, row in topk_row["batch_large_k"].items()},

@@ -14,6 +14,8 @@ is held bit for bit against its plain merge on candidate lists from
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -167,6 +169,48 @@ def test_tiles_smem_keeps_two_blocks_an_sm_at_every_k(k):
     assert 2 * per_block <= SM_SHARED
     if k <= topk.WIDE_K:
         assert 3 * per_block <= SM_SHARED
+
+
+@pytest.mark.parametrize("q,dim,k,nbytes", [
+    (1, 128, 10, 1_184), (4, 128, 10, 4_736), (1, 100, 11, 5_504), (1, 128, 33, 6_976),
+    (1, 128, 256, 21_632), (4, 128, 256, 86_528), (2, 1024, 100, 29_952), (3, 1, 1, 1_824)])
+def test_stream_smem_counts_the_lists_of_the_selection_k_takes(q, dim, k, nbytes):
+    """The Q <= 4 pass's shared bytes (score_topk.cu's stream_smem): the
+    queries in f32, padded to whole 128 columns, then up to k =
+    STREAM_WIDE_K each warp's list of k values and indices and a fill
+    count a query, above it each warp's skewed list of k and skewed queue
+    of STREAM_QUEUE a query: 512 + 8 x 8 x (264 + 66) at Q=1, k=256."""
+    assert topk.stream_smem(q, dim, k) == nbytes
+    assert (k > topk.STREAM_WIDE_K) == (k >= 11)
+
+
+# the shared memory a block may take on an H100 (227 KB)
+BLOCK_SHARED_MAX = 232_448
+
+
+@pytest.mark.parametrize("q", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [1, 10, 11, 32, 100, 256])
+def test_stream_smem_fits_a_block_at_every_width(q, k):
+    """Every Q <= 4 block fits the card's 227 KB a block at D up to 1024;
+    Q=4, k=256 at D=128 fits one block and Q=1, k=10 three on an SM (the
+    main path's search, 3-4 blocks an SM by registers)."""
+    assert topk.stream_smem(q, topk.MAX_DIM, k) <= BLOCK_SHARED_MAX
+    assert topk.stream_smem(4, 128, 256) <= BLOCK_SHARED_MAX
+    assert 3 * (topk.stream_smem(1, 128, 10) + BLOCK_RESERVED) <= SM_SHARED
+
+
+CONSTANTS = ["STREAM_WIDE_K", "WIDE_K", "STREAM_QUEUE", "STREAM_WARPS", "MAX_K",
+             "MAX_SPLITS"]
+
+
+@pytest.mark.parametrize("name", CONSTANTS)
+def test_python_constants_mirror_the_cuda_source(name):
+    """The wrapper's copies of score_topk.cu's constants (each a
+    ``constexpr int`` there) are the source's, so that the plan and the
+    shared-memory mirrors follow the kernel."""
+    source = (Path(topk.__file__).resolve().parents[1] / "csrc" / "score_topk.cu").read_text()
+    found = re.findall(rf"^constexpr int {name} = (\d+);", source, flags=re.M)
+    assert found == [str(getattr(topk, name))]
 
 
 CANDIDATE_CASES = [(1000, 10, 256, None), (1000, 100, 256, 700), (1000, 256, 512, None),
@@ -426,7 +470,8 @@ def _bit_equal(docs, queries, k, n_docs=None):
 
 
 STREAM_EDGE_CASES = [(q, dim, dtype, k, off) for q in (1, 4) for dim in (1, 100, 128, 1024)
-                     for dtype in (torch.float32, torch.bfloat16) for k in (1, 64, 256)
+                     for dtype in (torch.float32, torch.bfloat16)
+                     for k in (1, 64, 256, topk.STREAM_WIDE_K, topk.STREAM_WIDE_K + 1)
                      for off in (-1, 1)]
 
 
@@ -437,7 +482,8 @@ def test_stream_kernel_crosses_split_edges(cuda, q, dim, dtype, k, off):
     one row short), D=1 and 100 on the scalar fill in bf16 (D=1 in f32
     too), D=1024 in several 128-column passes, k up to 256. Integer-valued
     inputs sum exactly in any order, so scores and indices equal the plain
-    version's to the bit, ties included."""
+    version's to the bit, ties included. k on both sides of STREAM_WIDE_K
+    takes both selections."""
     gen = torch.Generator(device=cuda).manual_seed(q * 7919 + dim * 31 + k)
     base = topk.STREAM_ROWS * (150 if dim == 1024 else 600)
     split_len = _split_len(cuda, q, base, dtype, dim, k)
@@ -487,16 +533,53 @@ def test_stream_kernel_reads_docs_off_alignment(cuda, offset, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,k", [(1, 256), (4, 256), (2, 10)])
+@pytest.mark.parametrize("q,k", [(1, 256), (4, 256), (2, 10), (1, topk.STREAM_WIDE_K),
+                                 (1, topk.STREAM_WIDE_K + 1), (3, topk.STREAM_WIDE_K),
+                                 (3, topk.STREAM_WIDE_K + 1), (2, 100)])
 def test_stream_kernel_breaks_ties_to_the_lower_index(cuda, q, k):
-    """Every score ties (or every query is zero): the first k docs, in order."""
+    """Every score ties (or every query is zero): the first k docs, in
+    order, with either selection (k on both sides of STREAM_WIDE_K)."""
     docs = torch.zeros(8192, 16, device=cuda)
     docs[:, 0] = 1.0
     queries = torch.zeros(q, 16, device=cuda)
-    if k == 256:
+    if k != 10:
         queries[:, 0] = 1.0
     _, got_i = _bit_equal(docs, queries, k)
     assert torch.equal(got_i.cpu(), torch.arange(k, dtype=torch.int32).repeat(q, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,k", [(1, 256), (4, 256), (2, topk.STREAM_WIDE_K),
+                                 (3, topk.STREAM_WIDE_K + 1), (1, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_pass_one_lists_are_each_splits_top_k(cuda, q, k, dtype):
+    """Pass 1 alone (score_topk_candidates) at Q <= 4, on both sides of
+    STREAM_WIDE_K, bit for bit the plain per-split top-k under the call's
+    plan, with rows past n_docs masked (integer-valued inputs)."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 31 + k)
+    docs = torch.randint(-2, 3, (100_003, 64), device=cuda, generator=gen).to(dtype)
+    queries = torch.randint(-2, 3, (q, 64), device=cuda, generator=gen).float()
+    n_docs = 99_000
+    got_v, got_i = topk.score_topk_candidates(docs, queries, k, n_docs)
+    split_len = _split_len(cuda, q, docs.shape[0], dtype, 64, k)
+    want_v, want_i = topk.candidates_reference(docs, queries, k, split_len, n_docs)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [10, topk.STREAM_WIDE_K, topk.STREAM_WIDE_K + 1, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_block_fits_without_spills(cuda, q, k, dtype):
+    """Both instantiations of the Q <= 4 pass: no spills, the shared bytes
+    of topk.stream_smem, and at Q=1 the blocks an SM that its launch bound
+    asks for (3 for the narrow selection, 2 for the wide one); one at
+    least elsewhere."""
+    block = topk.stream_occupancy(cuda, dtype, q, 128, k)
+    assert block["local_bytes"] == 0
+    assert block["smem_bytes"] == topk.stream_smem(q, 128, k)
+    assert block["blocks_per_sm"] >= (3 if (q, k) == (1, 10) else 2 if q == 1 else 1)
 
 
 MERGE_CASES = [(q, s, k) for q in (1, 4, 5, 257) for s, k in MERGE_PLAN_CASES]

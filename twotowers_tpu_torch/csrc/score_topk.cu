@@ -72,25 +72,74 @@
 //    a query) leaves each lane one row, then plain xor steps finish it:
 //    9 shuffles a query for 8 f32 rows, 8 for 16 bf16 rows. The summation
 //    order is fixed by the shapes alone.
-//  - Selection is the TPU kernel's prune (run_kth). Each warp keeps its own
-//    sorted top-k in shared memory, so the pass needs no __syncthreads
-//    until the split ends. A warp ballots the rows that beat its k-th best;
-//    the whole warp inserts each one (a ballot count finds its place, lanes
-//    shift the tail), re-ballots against the new k-th best, and goes on.
-//    Rows within a warp come in ascending order, so when every score ties
-//    only the warp's first k rows pass. At the end warps 0..Q-1 merge the
-//    8 warp lists of their query into the block's k best (k rounds of an
-//    arg-best over 8 heads).
+//  - Narrow selection (k <= STREAM_WIDE_K, score_topk_stream<T, NQ, false>),
+//    the TPU kernel's prune (run_kth). Each warp keeps its own sorted top-k
+//    in shared memory, so the pass needs no __syncthreads until the split
+//    ends. A warp ballots the rows that beat its k-th best; the whole warp
+//    inserts each one (a ballot count finds its place, lanes shift the
+//    tail), re-ballots against the new k-th best, and goes on. Rows within
+//    a warp come in ascending order, so when every score ties only the
+//    warp's first k rows pass. At the end warps 0..Q-1 merge the 8 warp
+//    lists of their query into the block's k best (k rounds of an arg-best
+//    over 8 heads).
+//  - Wide selection (k > STREAM_WIDE_K, score_topk_stream<T, NQ, true>).
+//    What bounds it is latency, not bytes: a warp sees split_len / 8 rows
+//    (about 237 in f32, 316 in bf16 at Q=1, N=1M under the narrow
+//    selection's plan; 473 at 2 blocks an SM), so at k = 256 its list
+//    barely fills and nearly every row survives. The narrow selection
+//    inserted each survivor by a chain of dependent shared-memory rounds:
+//    at Q=1, k=256 the inserts took 0.180 ms (f32) and 0.268 (bf16) of a
+//    0.41 ms call and the k-round merge 0.034; at Q=4 the inserts took
+//    1.23-1.38 of 1.47-1.55 (kernels/topk_variants.py, variants "stream
+//    narrow selection cut" and "... and end merge cut", on an NVIDIA H100
+//    80GB HBM3, 700.00 W). Here a warp's survivors fill its list unsorted,
+//    in lane order (a ballot and a prefix count), until it holds k; then
+//    it is sorted once across the warp (sort_list: bitonic, up to 8 pairs
+//    a lane). Later survivors, those that beat the k-th best, go to a
+//    queue of STREAM_QUEUE pairs a query; when the next iteration might not
+//    fit, the queue is sorted (sort_queue) and merged into the list by
+//    merge path (warp_merge), which gives the new k-th best. The sorts and
+//    merges run in settle, one query at a time, for the queries that need
+//    one. A list that never filled is sorted when the split ends, and a
+//    queue left over is merged. Then the block's 8 warp lists of each query
+//    merge by a tree (stream_tree: 8 -> 4 -> 2 -> 1 by merge-path merges in
+//    place, a thread's stretch held in registers across a __syncthreads;
+//    the last round writes to cand_v / cand_i). Lists and queues are
+//    skewed (a padding word after every 32 pairs). Pairs are unique, so the
+//    lists are the narrow selection's bit for bit. Shared memory is 4 Q
+//    dpad + 64 Q (list_stride(k) + list_stride(STREAM_QUEUE)) bytes:
+//    21,632 at Q=1, k=256 and 86,528 at Q=4.
+//  - STREAM_WIDE_K = 10, from topk_variants.py --k-sweep (variants "stream
+//    wide / narrow selection at every k", one run, same card). The wide
+//    selection is ahead at every k for Q=1 bf16 (0.1141 against 0.1223 ms
+//    at k=10), Q=4 f32 (0.2193 against 0.2569) and Q=4 bf16 (0.1631
+//    against 0.2097); at Q=1 f32 it is behind up to k=16 (0.1997 against
+//    0.1920 at k=10, 0.1998 against 0.1955 at k=16), level at k=24
+//    (0.2029) and ahead from k=32 (0.2046 against 0.2067; 0.2054 against
+//    0.2316 at k=64). k=10, the searches' default, stays on the narrow
+//    selection, today's code; above it the wide one wins on the sum of
+//    the four rows at every k of the sweep.
+//  - STREAM_QUEUE = 64: queues of 32 lost at Q=4, k=256 (0.2924 against
+//    0.2767 ms f32, 0.2836 against 0.2334 bf16), queues of 128 at Q=1
+//    (0.2135 against 0.2107 f32 at k=256, 0.2155 against 0.2067 at
+//    k=100); the wide Q=1 block capped at 80 registers (3 blocks an SM)
+//    spills 8 bytes (f32) and 120 (bf16) and is no faster (0.2139 and
+//    0.1758 at k=256). Same tool, variants "stream queue of 32 / 128" and
+//    "stream wide launch bound 3 blocks".
 //  - plan() (kernels/topk.py) cuts the docs into about one wave of splits,
 //    SMs x the blocks per SM that the CUDA runtime reports for this pass
 //    (score_topk_stream_occupancy), so pass 2 merges a few hundred lists.
-//  - Times at N=1M, D=128, k=10, both passes (kernels/topk_variants.py on
-//    an NVIDIA H100 80GB HBM3, 700.00 W): Q=1 f32 0.197 ms,
-//    bf16 0.126 (the pass it replaced took 0.527 and 0.520); Q=4 f32 0.264,
-//    bf16 0.212. ptxas: 64 registers at Q=1 f32 and 80 in bf16 (4 and 3
-//    blocks an SM), 108-128 f32 and 128-248 bf16 at Q=2..4, no spills.
-//    PERF.md section 6 has the final run beside the bound, the plain
-//    version and torch.topk of the matmul.
+//  - Times at N=1M, D=128, both passes (kernels/topk_variants.py on an
+//    NVIDIA H100 80GB HBM3, 700.00 W): k=10 Q=1 f32 0.191 ms, bf16 0.122
+//    (the Q <= 4 pass before this one took 0.527 and 0.520); Q=4 f32 0.256, bf16
+//    0.210. k=256, against the narrow selection in one run: Q=1 f32 0.402
+//    -> 0.211, bf16 0.416 -> 0.131; Q=4 f32 1.469 -> 0.277, bf16 1.539 ->
+//    0.233; k=100 Q=1 f32 0.287 -> 0.207. ptxas, narrow: 64 registers at
+//    Q=1 f32 and 80 in bf16 (4 and 3 blocks an SM), 96-128 f32 and
+//    157-255 bf16 at Q=2..4; wide: 95 at Q=1 f32 and 125 in bf16 (2
+//    blocks an SM), 117-128 f32 and 193-223 bf16 at Q=2..4 (Q=4: 2 blocks
+//    f32, 1 bf16); no spills. PERF.md section 6 has the final run beside
+//    the bound, the plain version and torch.topk of the matmul.
 //
 // score_topk_tiles (Q >= 5). At Q=256, N=1M, D=128 in f32 it is bound by
 // operations: 2*256*1e6*128 = 6.55e10 FLOP / 67 TFLOP/s = 0.98 ms against
@@ -254,265 +303,6 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
 
-// Insert (s, i) into a warp's sorted list lv/li of f entries (at most k),
-// with the whole warp: a ballot count gives its place, then the lanes move
-// the entries behind it up one place, 32 at a time from the top. The
-// caller has pruned it: when the list is full, it ranks before entry k-1.
-__device__ __forceinline__ void warp_insert(float* lv, int* li, int& f, int k, float s,
-                                            int i, int lane) {
-    int p = 0;
-    for (int e0 = 0; e0 < f; e0 += 32) {
-        const int e = e0 + lane;
-        p += __popc(__ballot_sync(FULL, e < f && ranks_before(lv[e], li[e], s, i)));
-    }
-    for (int hi = min(f, k - 1); hi > p; hi -= 32) {
-        const int e = hi - 1 - lane;
-        const bool move = e >= p;
-        float v = 0.f;
-        int vi = 0;
-        if (move) { v = lv[e]; vi = li[e]; }
-        __syncwarp();
-        if (move) { lv[e + 1] = v; li[e + 1] = vi; }
-        __syncwarp();
-    }
-    if (lane == 0) { lv[p] = s; li[p] = i; }
-    __syncwarp();
-    f = min(f + 1, k);
-}
-
-// One step of the reduce-scatter, then the next: the lanes of a team whose
-// bit `off` is set keep the upper half of their rows, the others the lower
-// half, and each adds its partner's partial sums of the half it keeps.
-template <int TL, int NQ, int J>
-__device__ __forceinline__ void halve_rows(float (&acc)[ROWS][NQ], int tl) {
-    if constexpr ((ROWS >> J) > 1) {
-        constexpr int off = TL >> (J + 1), h = ROWS >> (J + 1);
-        const bool upper = tl & off;
-#pragma unroll
-        for (int r = 0; r < h; ++r)
-#pragma unroll
-            for (int qq = 0; qq < NQ; ++qq) {
-                const float send = upper ? acc[r][qq] : acc[r + h][qq];
-                const float keep = upper ? acc[r + h][qq] : acc[r][qq];
-                acc[r][qq] = keep + __shfl_xor_sync(FULL, send, off);
-            }
-        halve_rows<TL, NQ, J + 1>(acc, tl);
-    }
-}
-
-size_t stream_smem(int n_queries, int dim, int k) {
-    const int dpad = (dim + STREAM_COLS - 1) / STREAM_COLS * STREAM_COLS;
-    return sizeof(float) * (n_queries * dpad + STREAM_WARPS * n_queries * k)
-         + sizeof(int) * (STREAM_WARPS * n_queries * k + STREAM_WARPS * n_queries);
-}
-
-// At Q=1 ptxas would take ~116 registers and fit 2 blocks an SM; capped at
-// 80 it fits 3-4 with no spills, more loads in flight. At Q >= 2 the same
-// cap spills.
-template <typename T, int NQ>
-__global__ void __launch_bounds__(STREAM_THREADS, NQ == 1 ? 3 : 1)
-score_topk_stream(const T* __restrict__ docs, const T* __restrict__ queries, long long n,
-                  int dim, int k, long long n_docs, long long split_len, int vec,
-                  float* __restrict__ cand_v, int* __restrict__ cand_i) {
-    constexpr int V = 16 / sizeof(T);           // values a 16-byte unit
-    constexpr int TL = STREAM_COLS / V;         // lanes a team (one row at a time)
-    constexpr int TEAMS = 32 / TL;              // rows a warp reads at once
-    constexpr int RPW = ROWS * TEAMS;           // rows a warp iteration
-    constexpr int STEPS = ilog2(ROWS);          // reduce-scatter steps
-    static_assert(TL >= ROWS && (ROWS & (ROWS - 1)) == 0, "the butterfly halves ROWS per step");
-
-    const int dpad = (dim + STREAM_COLS - 1) / STREAM_COLS * STREAM_COLS;
-    extern __shared__ float4 smem4[];
-    float* q_s = reinterpret_cast<float*>(smem4);                   // [NQ][dpad]
-    float* list_v = q_s + NQ * dpad;                                // [warps][NQ][k], sorted
-    int* list_i = reinterpret_cast<int*>(list_v + STREAM_WARPS * NQ * k);
-    int* list_n = list_i + STREAM_WARPS * NQ * k;                   // [warps][NQ]
-
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int tl = lane % TL, team = lane / TL;
-    const int split = blockIdx.x;
-    const long long begin = (long long)split * split_len;
-    const long long end = min(begin + split_len, n);
-
-    for (int e = tid; e < NQ * dpad; e += STREAM_THREADS) {
-        const int qq = e / dpad, c = e % dpad;
-        q_s[e] = c < dim ? widen(queries[(long long)qq * dim + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // After the reduce-scatter a lane holds row `held` of its team's ROWS;
-    // the lanes of a row agree, and the lowest of them tests it.
-    int held = 0;
-#pragma unroll
-    for (int j = 0; j < STEPS; ++j)
-        if (tl & (TL >> (j + 1))) held += ROWS >> (j + 1);
-    const bool owner = (tl & (TL / ROWS - 1)) == 0;
-
-    float* my_v = list_v + warp * NQ * k;
-    int* my_i = list_i + warp * NQ * k;
-    int filled[NQ];
-    float kth_v[NQ];
-    int kth_i[NQ];
-#pragma unroll
-    for (int qq = 0; qq < NQ; ++qq) { filled[qq] = 0; kth_v[qq] = 0.f; kth_i[qq] = 0; }
-
-    // warp w reads rows base .. base + RPW - 1, row base + r * TEAMS + team
-    // in slot r of its lane's team; the block's warps take turns
-    for (long long base = begin + (long long)warp * RPW; base < end;
-         base += (long long)STREAM_WARPS * RPW) {
-        float acc[ROWS][NQ];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-            for (int qq = 0; qq < NQ; ++qq) acc[r][qq] = 0.f;
-
-        for (int col = tl * V; col < dpad; col += STREAM_COLS) {
-            uint4 u[ROWS];
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r)
-                u[r] = load_unit(docs, base + r * TEAMS + team, end, col, dim, vec);
-            float qv[NQ][V];
-#pragma unroll
-            for (int qq = 0; qq < NQ; ++qq)
-#pragma unroll
-                for (int j = 0; j < V; j += 4) {
-                    const float4 a = *reinterpret_cast<const float4*>(q_s + qq * dpad + col + j);
-                    qv[qq][j] = a.x; qv[qq][j + 1] = a.y; qv[qq][j + 2] = a.z; qv[qq][j + 3] = a.w;
-                }
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r) {
-                float x[V];
-                widen_unit<T>(u[r], x);
-#pragma unroll
-                for (int qq = 0; qq < NQ; ++qq)
-#pragma unroll
-                    for (int j = 0; j < V; ++j) acc[r][qq] = fmaf(qv[qq][j], x[j], acc[r][qq]);
-            }
-        }
-
-        // reduce-scatter across the team: each step keeps half the rows
-        halve_rows<TL, NQ, 0>(acc, tl);
-#pragma unroll
-        for (int off = TL / ROWS / 2; off > 0; off >>= 1)
-#pragma unroll
-            for (int qq = 0; qq < NQ; ++qq) acc[0][qq] += __shfl_xor_sync(FULL, acc[0][qq], off);
-
-        // the prune: only rows that beat the warp's k-th best are inserted
-        const long long doc = base + held * TEAMS + team;
-        const bool live = owner && doc < end;
-#pragma unroll
-        for (int qq = 0; qq < NQ; ++qq) {
-            const float s = doc < n_docs ? acc[0][qq] : MASKED;
-            float* lv = my_v + qq * k;
-            int* li = my_i + qq * k;
-            unsigned m = __ballot_sync(
-                FULL, live && (filled[qq] < k || ranks_before(s, (int)doc, kth_v[qq], kth_i[qq])));
-            while (m) {
-                const int src = __ffs(m) - 1;
-                warp_insert(lv, li, filled[qq], k, __shfl_sync(FULL, s, src),
-                            __shfl_sync(FULL, (int)doc, src), lane);
-                if (filled[qq] == k) { kth_v[qq] = lv[k - 1]; kth_i[qq] = li[k - 1]; }
-                m &= m - 1;
-                m &= __ballot_sync(FULL, live && (filled[qq] < k
-                                                  || ranks_before(s, (int)doc, kth_v[qq], kth_i[qq])));
-            }
-        }
-    }
-
-    if (lane == 0) {
-#pragma unroll
-        for (int qq = 0; qq < NQ; ++qq) list_n[warp * NQ + qq] = filled[qq];
-    }
-    __syncthreads();
-
-    // warp qq merges the warps' lists of query qq: lane w < STREAM_WARPS
-    // holds the head of warp w's list, k rounds of an arg-best
-    if (warp < NQ) {
-        const int qq = warp;
-        const int w = lane < STREAM_WARPS ? lane : 0;
-        const int len = lane < STREAM_WARPS ? list_n[w * NQ + qq] : 0;
-        const float* wv = list_v + (w * NQ + qq) * k;
-        const int* wi = list_i + (w * NQ + qq) * k;
-        const long long o = ((long long)qq * gridDim.x + split) * k;
-        int h = 0;
-        for (int r = 0; r < k; ++r) {
-            float bv = h < len ? wv[h] : -INFINITY;
-            int bi = h < len ? wi[h] : NO_INDEX;
-            int bs = h < len ? lane : -1;
-#pragma unroll
-            for (int off = 1; off < STREAM_WARPS; off <<= 1) {
-                const float ov = __shfl_xor_sync(FULL, bv, off);
-                const int oi = __shfl_xor_sync(FULL, bi, off);
-                const int os = __shfl_xor_sync(FULL, bs, off);
-                if (os >= 0 && (bs < 0 || ranks_before(ov, oi, bv, bi))) { bv = ov; bi = oi; bs = os; }
-            }
-            if (bs == lane) ++h;
-            if (lane == 0) { cand_v[o + r] = bv; cand_i[o + r] = bi; }
-        }
-    }
-}
-
-// One chunk of a tile in flight: its 16-byte units in registers.
-template <typename T>
-struct Stage {
-    static constexpr int V = 16 / sizeof(T);       // values a unit
-    static constexpr int G = BK / V;               // units a row of the chunk
-    static constexpr int U = BN * G / THREADS1;    // doc units a thread
-    static constexpr int QU = (BQ * G + THREADS1 - 1) / THREADS1;  // query units a thread
-    uint4 d[U];
-    uint4 q[QU];
-
-    // Unit u of a thread: row 16 * (warp + 4 * (u / (G/2))) + lane/2, column
-    // group 2 * (u % (G/2)) + lane%2, so a warp reads 16 rows x 32 bytes.
-    __device__ __forceinline__ static int row(int u, int warp, int lane) {
-        return 16 * (warp + 4 * (u / (G / 2))) + (lane >> 1);
-    }
-    __device__ __forceinline__ static int group(int u, int lane) {
-        return 2 * (u % (G / 2)) + (lane & 1);
-    }
-
-    __device__ __forceinline__ void load(const T* docs, const T* queries, long long t0,
-                                         long long end, int q0, int n_queries, int d0,
-                                         int dim, bool vec, int warp, int lane) {
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-            d[u] = load_unit(docs, t0 + row(u, warp, lane), end, d0 + group(u, lane) * V,
-                             dim, vec);
-        // query unit i of a thread: row lane, column group warp + 4 i
-#pragma unroll
-        for (int i = 0; i < QU; ++i)
-            if (warp + 4 * i < G)
-                q[i] = load_unit(queries, q0 + lane, n_queries, d0 + (warp + 4 * i) * V, dim, vec);
-    }
-
-    __device__ __forceinline__ void store(float* buf, int warp, int lane) const {
-        float* q_s = buf;
-        float* d_s = buf + BK * BQ;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            float x[V];
-            widen_unit<T>(d[u], x);
-            const int r = row(u, warp, lane), g = group(u, lane);
-            const bool rotate = V == 8 && (g & 1);
-#pragma unroll
-            for (int j = 0; j < V; ++j) {
-                const int jj = rotate ? j ^ 4 : j;
-                d_s[(g * V + jj) * BS + r] = rotate ? x[(j ^ 4) % V] : x[j];
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < QU; ++i) {
-            const int g = warp + 4 * i;
-            if (g >= G) continue;
-            float x[V];
-            widen_unit<T>(q[i], x);
-#pragma unroll
-            for (int j = 0; j < V; ++j) q_s[(g * V + j) * BQ + lane] = x[j];
-        }
-    }
-};
-
 // Where pair e of a list lies in its shared plane: one word of padding
 // after every 32, so that threads whose runs start a power of two apart
 // (8 pairs at k = 256; pass 2's lists of k = 256 all start on bank 0) fall
@@ -615,9 +405,11 @@ __device__ __forceinline__ void warp_merge(float* lv, int* lx, int k, const floa
 }
 
 // Sort a warp's queue of n <= 32 E survivors (skewed) in place, through
-// registers.
+// registers. Given len (n <= len), only its first len places are written,
+// the pad (-inf, NO_INDEX) from n on: a list of len = k sorted in place.
 template <int E>
-__device__ __forceinline__ void sort_queue(float* qv, int* qx, int n, int lane) {
+__device__ __forceinline__ void sort_queue(float* qv, int* qx, int n, int lane,
+                                           int len = 32 * E) {
     float v[E];
     int x[E];
 #pragma unroll
@@ -630,11 +422,483 @@ __device__ __forceinline__ void sort_queue(float* qv, int* qx, int n, int lane) 
     __syncwarp();  // every lane has read the queue before it is overwritten
 #pragma unroll
     for (int t = 0; t < E; ++t) {
-        qv[skew(32 * t + lane)] = v[t];
-        qx[skew(32 * t + lane)] = x[t];
+        const int g = 32 * t + lane;
+        if (g < len) { qv[skew(g)] = v[t]; qx[skew(g)] = x[t]; }
     }
+    for (int g = 32 * E + lane; g < len; g += 32) { qv[skew(g)] = -INFINITY; qx[skew(g)] = NO_INDEX; }
     __syncwarp();
 }
+
+// Insert (s, i) into a warp's sorted list lv/li of f entries (at most k),
+// with the whole warp: a ballot count gives its place, then the lanes move
+// the entries behind it up one place, 32 at a time from the top. The
+// caller has pruned it: when the list is full, it ranks before entry k-1.
+__device__ __forceinline__ void warp_insert(float* lv, int* li, int& f, int k, float s,
+                                            int i, int lane) {
+    int p = 0;
+    for (int e0 = 0; e0 < f; e0 += 32) {
+        const int e = e0 + lane;
+        p += __popc(__ballot_sync(FULL, e < f && ranks_before(lv[e], li[e], s, i)));
+    }
+    for (int hi = min(f, k - 1); hi > p; hi -= 32) {
+        const int e = hi - 1 - lane;
+        const bool move = e >= p;
+        float v = 0.f;
+        int vi = 0;
+        if (move) { v = lv[e]; vi = li[e]; }
+        __syncwarp();
+        if (move) { lv[e + 1] = v; li[e + 1] = vi; }
+        __syncwarp();
+    }
+    if (lane == 0) { lv[p] = s; li[p] = i; }
+    __syncwarp();
+    f = min(f + 1, k);
+}
+
+// One step of the reduce-scatter, then the next: the lanes of a team whose
+// bit `off` is set keep the upper half of their rows, the others the lower
+// half, and each adds its partner's partial sums of the half it keeps.
+template <int TL, int NQ, int J>
+__device__ __forceinline__ void halve_rows(float (&acc)[ROWS][NQ], int tl) {
+    if constexpr ((ROWS >> J) > 1) {
+        constexpr int off = TL >> (J + 1), h = ROWS >> (J + 1);
+        const bool upper = tl & off;
+#pragma unroll
+        for (int r = 0; r < h; ++r)
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) {
+                const float send = upper ? acc[r][qq] : acc[r + h][qq];
+                const float keep = upper ? acc[r + h][qq] : acc[r][qq];
+                acc[r][qq] = keep + __shfl_xor_sync(FULL, send, off);
+            }
+        halve_rows<TL, NQ, J + 1>(acc, tl);
+    }
+}
+
+constexpr int STREAM_WIDE_K = 10;   // score_topk_stream: k above this batches its survivors
+constexpr int STREAM_QUEUE = 64;    // survivors a wide warp queues a query before a merge
+static_assert(STREAM_QUEUE >= 32 && (STREAM_QUEUE & (STREAM_QUEUE - 1)) == 0,
+              "a queue is sorted whole: 32 E pairs");
+
+// The queries' rows, then the narrow selection's lists and fill counts, or
+// the wide one's skewed lists and queues.
+size_t stream_smem(int n_queries, int dim, int k) {
+    const int dpad = (dim + STREAM_COLS - 1) / STREAM_COLS * STREAM_COLS;
+    if (k > STREAM_WIDE_K)
+        return sizeof(float) * n_queries * dpad
+             + 2 * sizeof(float) * STREAM_WARPS * n_queries
+               * (list_stride(k) + list_stride(STREAM_QUEUE));
+    return sizeof(float) * (n_queries * dpad + STREAM_WARPS * n_queries * k)
+         + sizeof(int) * (STREAM_WARPS * n_queries * k + STREAM_WARPS * n_queries);
+}
+
+// Sort the first n pairs of a warp's skewed list of k (n <= k) best first
+// in place, through registers (E = 1, 2, 4 or 8 a lane: 32 E >= n); the
+// pairs from n on become the pad.
+__device__ __forceinline__ void sort_list(float* lv, int* lx, int n, int k, int lane) {
+    if (n <= 32) sort_queue<1>(lv, lx, n, lane, k);
+    else if (n <= 64) sort_queue<2>(lv, lx, n, lane, k);
+    else if (n <= 128) sort_queue<4>(lv, lx, n, lane, k);
+    else sort_queue<8>(lv, lx, n, lane, k);
+}
+
+// The rare steps of a wide stream warp, one query at a time. A query whose
+// bit is in `sorting` has its list's first filled[q] pairs sorted in place
+// (the list has just filled, or the split ended first); one in `merging`
+// has its queue of queued[q] survivors sorted, merged into the list and
+// emptied. Then the query's k-th best is read anew. Its registers are
+// picked by selects: q is not known at compile time here.
+template <int NQ>
+__device__ __forceinline__ void settle(unsigned sorting, unsigned merging, float* lists_v,
+                                       int* lists_i, float* queues_v, int* queues_i, int ls,
+                                       int k, const int (&filled)[NQ], int (&queued)[NQ],
+                                       float (&kth_v)[NQ], int (&kth_i)[NQ], int lane) {
+    constexpr int qs = list_stride(STREAM_QUEUE);
+    while (sorting | merging) {
+        const int q = __ffs(sorting | merging) - 1;
+        float* lv = lists_v + q * ls;
+        int* lx = lists_i + q * ls;
+        int f = filled[0], n = queued[0];
+#pragma unroll
+        for (int j = 1; j < NQ; ++j) {
+            f = q == j ? filled[j] : f;
+            n = q == j ? queued[j] : n;
+        }
+        if ((sorting >> q) & 1u) sort_list(lv, lx, f, k, lane);
+        const bool merge = (merging >> q) & 1u;
+        if (merge) {
+            float* qv = queues_v + q * qs;
+            int* qx = queues_i + q * qs;
+            if (n <= 32) sort_queue<1>(qv, qx, n, lane);
+            else if (STREAM_QUEUE <= 64 || n <= 64) sort_queue<2>(qv, qx, n, lane);
+            else if (STREAM_QUEUE <= 128 || n <= 128) sort_queue<4>(qv, qx, n, lane);
+            else sort_queue<8>(qv, qx, n, lane);
+            warp_merge(lv, lx, k, qv, qx, n, lane);
+        }
+        const float v = lv[skew(k - 1)];
+        const int x = lx[skew(k - 1)];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+            kth_v[j] = q == j ? v : kth_v[j];
+            kth_i[j] = q == j ? x : kth_i[j];
+            queued[j] = q == j && merge ? 0 : queued[j];
+        }
+        sorting &= ~(1u << q);
+        merging &= ~(1u << q);
+    }
+}
+
+// Outputs a thread of stream_tree takes at most: a merge's k outputs are
+// cut into as many power-of-two stretches as the threads allow (the fewest
+// in the first round, of 4 NQ merges), or as k allows (then 2 at most).
+__host__ __device__ constexpr int tree_run(int nq) {
+    return (MAX_K >> ilog2(STREAM_THREADS / (4 * nq))) > 2
+        ? MAX_K >> ilog2(STREAM_THREADS / (4 * nq)) : 2;
+}
+
+// A wide stream block's 8 warp lists of each query (skewed, sorted, k
+// pairs each; query q of warp w at (w NQ + q) ls) merged into the split's
+// k best, which go to out_v / out_i + q * out_stride. Round by round (gap
+// 1, 2, 4) the lists of warps w and w + gap merge into list w, keeping the
+// first k, as pass 2's merge_lists does: a thread takes one stretch of a
+// merge's outputs, finds its start by a binary search along the merge
+// path's diagonal and merges it into registers; after a __syncthreads it
+// writes them over list w, or, in the last round, to out_v / out_i. Ties
+// go to the lower warp (pairs are unique but for the pad).
+template <int NQ>
+__device__ __forceinline__ void stream_tree(float* lists_v, int* lists_i, int ls, int k,
+                                            float* out_v, int* out_i, long long out_stride,
+                                            int tid) {
+    constexpr int RUN = tree_run(NQ);
+    for (int gap = 1; gap < STREAM_WARPS; gap <<= 1) {
+        const int merges = NQ * STREAM_WARPS / (2 * gap);
+        int shift = 0;
+        while ((2 << shift) <= k && (merges << (shift + 1)) <= STREAM_THREADS) ++shift;
+        const int chunk = ((k - 1) >> shift) + 1;
+        const int p = tid >> shift;  // merge p: query p % NQ, warps w and w + gap
+        const int q = p % NQ, w = p / NQ * 2 * gap;
+        const int d0 = (tid & ((1 << shift) - 1)) * chunk;
+        const int d1 = p < merges ? min(d0 + chunk, k) : d0;
+        float* av = lists_v + (w * NQ + q) * ls;
+        int* ax = lists_i + (w * NQ + q) * ls;
+        const float* bv = av + gap * NQ * ls;
+        const int* bx = ax + gap * NQ * ls;
+        float ov[RUN];
+        int ox[RUN];
+        if (d0 < d1) {
+            // i = how many of the first d0 outputs come from a: a[mid] is
+            // among them unless b[d0 - 1 - mid] ranks strictly before it
+            int lo = 0, hi = d0;
+            while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                const int ea = skew(mid), eb = skew(d0 - 1 - mid);
+                if (ranks_before(bv[eb], bx[eb], av[ea], ax[ea])) hi = mid;
+                else lo = mid + 1;
+            }
+            // i + j = d < k, so both heads stay inside their lists
+            int i = lo, j = d0 - lo;
+#pragma unroll
+            for (int t = 0; t < RUN; ++t) {
+                if (d0 + t >= d1) break;
+                const float a = av[skew(i)], b = bv[skew(j)];
+                const int ai = ax[skew(i)], bi = bx[skew(j)];
+                const bool take_b = ranks_before(b, bi, a, ai);
+                ov[t] = take_b ? b : a;
+                ox[t] = take_b ? bi : ai;
+                i += !take_b;
+                j += take_b;
+            }
+        }
+        __syncthreads();  // every merge has read its lists
+        const bool last = 2 * gap == STREAM_WARPS;
+#pragma unroll
+        for (int t = 0; t < RUN; ++t) {
+            if (d0 + t >= d1) break;
+            if (last) {
+                out_v[q * out_stride + d0 + t] = ov[t];
+                out_i[q * out_stride + d0 + t] = ox[t];
+            } else {
+                av[skew(d0 + t)] = ov[t];
+                ax[skew(d0 + t)] = ox[t];
+            }
+        }
+        if (!last) __syncthreads();
+    }
+}
+
+// At Q=1 ptxas would take ~116 registers and fit 2 blocks an SM; capped at
+// 80 it fits 3-4 with no spills, more loads in flight. At Q >= 2 the same
+// cap spills, and so does the wide selection's at Q=1 (its sort of up to
+// 8 pairs a lane), which is capped at 128: 2 blocks an SM. WIDE (k >
+// STREAM_WIDE_K): each warp queues its survivors and sorts and merges them
+// in batches, and the warp lists merge by a tree; else each survivor is
+// inserted at once (see the note).
+template <typename T, int NQ, bool WIDE>
+__global__ void __launch_bounds__(STREAM_THREADS, NQ == 1 ? (WIDE ? 2 : 3) : 1)
+score_topk_stream(const T* __restrict__ docs, const T* __restrict__ queries, long long n,
+                  int dim, int k, long long n_docs, long long split_len, int vec,
+                  float* __restrict__ cand_v, int* __restrict__ cand_i) {
+    constexpr int V = 16 / sizeof(T);           // values a 16-byte unit
+    constexpr int TL = STREAM_COLS / V;         // lanes a team (one row at a time)
+    constexpr int TEAMS = 32 / TL;              // rows a warp reads at once
+    constexpr int RPW = ROWS * TEAMS;           // rows a warp iteration
+    constexpr int STEPS = ilog2(ROWS);          // reduce-scatter steps
+    static_assert(TL >= ROWS && (ROWS & (ROWS - 1)) == 0, "the butterfly halves ROWS per step");
+
+    const int dpad = (dim + STREAM_COLS - 1) / STREAM_COLS * STREAM_COLS;
+    extern __shared__ float4 smem4[];
+    float* q_s = reinterpret_cast<float*>(smem4);                   // [NQ][dpad]
+    float* list_v = q_s + NQ * dpad;                                // [warps][NQ][k], sorted
+    int* list_i = reinterpret_cast<int*>(list_v + STREAM_WARPS * NQ * k);
+    int* list_n = list_i + STREAM_WARPS * NQ * k;                   // [warps][NQ]
+    // wide selection: lists [warps][NQ][ls] and queues [warps][NQ][qs], skewed
+    const int ls = list_stride(k);
+    constexpr int qs = list_stride(STREAM_QUEUE);
+    float* wide_v = q_s + NQ * dpad;
+    int* wide_i = reinterpret_cast<int*>(wide_v + STREAM_WARPS * NQ * ls);
+    float* queue_v = reinterpret_cast<float*>(wide_i + STREAM_WARPS * NQ * ls);
+    int* queue_i = reinterpret_cast<int*>(queue_v + STREAM_WARPS * NQ * qs);
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int tl = lane % TL, team = lane / TL;
+    const int split = blockIdx.x;
+    const long long begin = (long long)split * split_len;
+    const long long end = min(begin + split_len, n);
+
+    for (int e = tid; e < NQ * dpad; e += STREAM_THREADS) {
+        const int qq = e / dpad, c = e % dpad;
+        q_s[e] = c < dim ? widen(queries[(long long)qq * dim + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // After the reduce-scatter a lane holds row `held` of its team's ROWS;
+    // the lanes of a row agree, and the lowest of them tests it.
+    int held = 0;
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j)
+        if (tl & (TL >> (j + 1))) held += ROWS >> (j + 1);
+    const bool owner = (tl & (TL / ROWS - 1)) == 0;
+
+    float* my_v = list_v + warp * NQ * k;
+    int* my_i = list_i + warp * NQ * k;
+    int filled[NQ], queued[NQ];
+    float kth_v[NQ];
+    int kth_i[NQ];
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+        filled[qq] = 0;
+        queued[qq] = 0;
+        kth_v[qq] = WIDE ? -INFINITY : 0.f;  // the wide selection's pad
+        kth_i[qq] = WIDE ? NO_INDEX : 0;
+    }
+    float* my_wv = wide_v + warp * NQ * ls;
+    int* my_wi = wide_i + warp * NQ * ls;
+    float* my_qv = queue_v + warp * NQ * qs;
+    int* my_qi = queue_i + warp * NQ * qs;
+    const unsigned below = (1u << lane) - 1;
+
+    // warp w reads rows base .. base + RPW - 1, row base + r * TEAMS + team
+    // in slot r of its lane's team; the block's warps take turns
+    for (long long base = begin + (long long)warp * RPW; base < end;
+         base += (long long)STREAM_WARPS * RPW) {
+        float acc[ROWS][NQ];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) acc[r][qq] = 0.f;
+
+        for (int col = tl * V; col < dpad; col += STREAM_COLS) {
+            uint4 u[ROWS];
+#pragma unroll
+            for (int r = 0; r < ROWS; ++r)
+                u[r] = load_unit(docs, base + r * TEAMS + team, end, col, dim, vec);
+            float qv[NQ][V];
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+                for (int j = 0; j < V; j += 4) {
+                    const float4 a = *reinterpret_cast<const float4*>(q_s + qq * dpad + col + j);
+                    qv[qq][j] = a.x; qv[qq][j + 1] = a.y; qv[qq][j + 2] = a.z; qv[qq][j + 3] = a.w;
+                }
+#pragma unroll
+            for (int r = 0; r < ROWS; ++r) {
+                float x[V];
+                widen_unit<T>(u[r], x);
+#pragma unroll
+                for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+                    for (int j = 0; j < V; ++j) acc[r][qq] = fmaf(qv[qq][j], x[j], acc[r][qq]);
+            }
+        }
+
+        // reduce-scatter across the team: each step keeps half the rows
+        halve_rows<TL, NQ, 0>(acc, tl);
+#pragma unroll
+        for (int off = TL / ROWS / 2; off > 0; off >>= 1)
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) acc[0][qq] += __shfl_xor_sync(FULL, acc[0][qq], off);
+
+        // the prune: only rows that beat the warp's k-th best are inserted
+        const long long doc = base + held * TEAMS + team;
+        const bool live = owner && doc < end;
+        if constexpr (WIDE) {
+            // a row that beats the k-th best (the pad while the list fills)
+            // takes, in lane order, the list's next free place or else the
+            // queue's; sorts and merges wait for settle
+            unsigned sorting = 0, merging = 0;
+#pragma unroll
+            for (int qq = 0; qq < NQ; ++qq) {
+                const float s = doc < n_docs ? acc[0][qq] : MASKED;
+                const bool pass = live && ranks_before(s, (int)doc, kth_v[qq], kth_i[qq]);
+                const unsigned m = __ballot_sync(FULL, pass);
+                const int at = __popc(m & below), got = __popc(m);
+                const int take = min(got, k - filled[qq]);
+                if (pass) {
+                    const bool fill = at < take;
+                    const int e = skew(fill ? filled[qq] + at : queued[qq] + at - take);
+                    (fill ? my_wv + qq * ls : my_qv + qq * qs)[e] = s;
+                    (fill ? my_wi + qq * ls : my_qi + qq * qs)[e] = (int)doc;
+                }
+                filled[qq] += take;
+                queued[qq] += got - take;
+                if (take > 0 && filled[qq] == k) sorting |= 1u << qq;
+                if (queued[qq] > STREAM_QUEUE - RPW) merging |= 1u << qq;  // room for one more
+            }
+            if (sorting | merging) {
+                __syncwarp();
+                settle<NQ>(sorting, merging, my_wv, my_wi, my_qv, my_qi, ls, k, filled, queued,
+                           kth_v, kth_i, lane);
+            }
+            continue;
+        }
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) {
+            const float s = doc < n_docs ? acc[0][qq] : MASKED;
+            float* lv = my_v + qq * k;
+            int* li = my_i + qq * k;
+            unsigned m = __ballot_sync(
+                FULL, live && (filled[qq] < k || ranks_before(s, (int)doc, kth_v[qq], kth_i[qq])));
+            while (m) {
+                const int src = __ffs(m) - 1;
+                warp_insert(lv, li, filled[qq], k, __shfl_sync(FULL, s, src),
+                            __shfl_sync(FULL, (int)doc, src), lane);
+                if (filled[qq] == k) { kth_v[qq] = lv[k - 1]; kth_i[qq] = li[k - 1]; }
+                m &= m - 1;
+                m &= __ballot_sync(FULL, live && (filled[qq] < k
+                                                  || ranks_before(s, (int)doc, kth_v[qq], kth_i[qq])));
+            }
+        }
+    }
+
+    if constexpr (WIDE) {
+        // a list that never filled is sorted now, a queue left over merged
+        unsigned sorting = 0, merging = 0;
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) {
+            if (filled[qq] < k) sorting |= 1u << qq;
+            else if (queued[qq] > 0) merging |= 1u << qq;
+        }
+        __syncwarp();
+        settle<NQ>(sorting, merging, my_wv, my_wi, my_qv, my_qi, ls, k, filled, queued, kth_v,
+                   kth_i, lane);
+        __syncthreads();
+        stream_tree<NQ>(wide_v, wide_i, ls, k, cand_v + (long long)split * k,
+                        cand_i + (long long)split * k, (long long)gridDim.x * k, tid);
+        return;
+    }
+    if (lane == 0) {
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) list_n[warp * NQ + qq] = filled[qq];
+    }
+    __syncthreads();
+
+    // warp qq merges the warps' lists of query qq: lane w < STREAM_WARPS
+    // holds the head of warp w's list, k rounds of an arg-best
+    if (warp < NQ) {
+        const int qq = warp;
+        const int w = lane < STREAM_WARPS ? lane : 0;
+        const int len = lane < STREAM_WARPS ? list_n[w * NQ + qq] : 0;
+        const float* wv = list_v + (w * NQ + qq) * k;
+        const int* wi = list_i + (w * NQ + qq) * k;
+        const long long o = ((long long)qq * gridDim.x + split) * k;
+        int h = 0;
+        for (int r = 0; r < k; ++r) {
+            float bv = h < len ? wv[h] : -INFINITY;
+            int bi = h < len ? wi[h] : NO_INDEX;
+            int bs = h < len ? lane : -1;
+#pragma unroll
+            for (int off = 1; off < STREAM_WARPS; off <<= 1) {
+                const float ov = __shfl_xor_sync(FULL, bv, off);
+                const int oi = __shfl_xor_sync(FULL, bi, off);
+                const int os = __shfl_xor_sync(FULL, bs, off);
+                if (os >= 0 && (bs < 0 || ranks_before(ov, oi, bv, bi))) { bv = ov; bi = oi; bs = os; }
+            }
+            if (bs == lane) ++h;
+            if (lane == 0) { cand_v[o + r] = bv; cand_i[o + r] = bi; }
+        }
+    }
+}
+
+// One chunk of a tile in flight: its 16-byte units in registers.
+template <typename T>
+struct Stage {
+    static constexpr int V = 16 / sizeof(T);       // values a unit
+    static constexpr int G = BK / V;               // units a row of the chunk
+    static constexpr int U = BN * G / THREADS1;    // doc units a thread
+    static constexpr int QU = (BQ * G + THREADS1 - 1) / THREADS1;  // query units a thread
+    uint4 d[U];
+    uint4 q[QU];
+
+    // Unit u of a thread: row 16 * (warp + 4 * (u / (G/2))) + lane/2, column
+    // group 2 * (u % (G/2)) + lane%2, so a warp reads 16 rows x 32 bytes.
+    __device__ __forceinline__ static int row(int u, int warp, int lane) {
+        return 16 * (warp + 4 * (u / (G / 2))) + (lane >> 1);
+    }
+    __device__ __forceinline__ static int group(int u, int lane) {
+        return 2 * (u % (G / 2)) + (lane & 1);
+    }
+
+    __device__ __forceinline__ void load(const T* docs, const T* queries, long long t0,
+                                         long long end, int q0, int n_queries, int d0,
+                                         int dim, bool vec, int warp, int lane) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+            d[u] = load_unit(docs, t0 + row(u, warp, lane), end, d0 + group(u, lane) * V,
+                             dim, vec);
+        // query unit i of a thread: row lane, column group warp + 4 i
+#pragma unroll
+        for (int i = 0; i < QU; ++i)
+            if (warp + 4 * i < G)
+                q[i] = load_unit(queries, q0 + lane, n_queries, d0 + (warp + 4 * i) * V, dim, vec);
+    }
+
+    __device__ __forceinline__ void store(float* buf, int warp, int lane) const {
+        float* q_s = buf;
+        float* d_s = buf + BK * BQ;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            float x[V];
+            widen_unit<T>(d[u], x);
+            const int r = row(u, warp, lane), g = group(u, lane);
+            const bool rotate = V == 8 && (g & 1);
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+                const int jj = rotate ? j ^ 4 : j;
+                d_s[(g * V + jj) * BS + r] = rotate ? x[(j ^ 4) % V] : x[j];
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < QU; ++i) {
+            const int g = warp + 4 * i;
+            if (g >= G) continue;
+            float x[V];
+            widen_unit<T>(q[i], x);
+#pragma unroll
+            for (int j = 0; j < V; ++j) q_s[(g * V + j) * BQ + lane] = x[j];
+        }
+    }
+};
 
 // One tile's wide selection for a warp's nq queries (8 at most; lists at
 // lists_v / lists_i + i * ls). acc[i][jj] is query i's score of doc t0 +
@@ -1042,10 +1306,15 @@ cudaError_t launch_merge(float* cand_v, int* cand_i, int n_queries, int n_splits
     return cudaGetLastError();
 }
 
+template <typename T>
+using StreamKernel = void (*)(const T*, const T*, long long, int, int, long long, long long, int,
+                              float*, int*);
+
+// The instantiation of score_topk_stream that k takes, its shared memory set.
 template <typename T, int NQ>
-cudaError_t stream_attributes(int dim, int k) {
-    return cudaFuncSetAttribute(score_topk_stream<T, NQ>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+cudaError_t stream_kernel(int dim, int k, StreamKernel<T>* kernel) {
+    *kernel = k > STREAM_WIDE_K ? score_topk_stream<T, NQ, true> : score_topk_stream<T, NQ, false>;
+    return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)stream_smem(NQ, dim, k));
 }
 
@@ -1053,10 +1322,12 @@ template <typename T, int NQ>
 cudaError_t launch_stream_q(const void* docs, const void* queries, long long n, int dim, int k,
                             long long n_docs, int n_splits, long long split_len,
                             float* cand_v, int* cand_i, cudaStream_t stream) {
-    cudaError_t err = stream_attributes<T, NQ>(dim, k);
+    if (k < 1 || k > MAX_K) return cudaErrorInvalidValue;
+    StreamKernel<T> kernel;
+    cudaError_t err = stream_kernel<T, NQ>(dim, k, &kernel);
     if (err != cudaSuccess) return err;
     const int vec = dim % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0;
-    score_topk_stream<T, NQ><<<n_splits, STREAM_THREADS, stream_smem(NQ, dim, k), stream>>>(
+    kernel<<<n_splits, STREAM_THREADS, stream_smem(NQ, dim, k), stream>>>(
         static_cast<const T*>(docs), static_cast<const T*>(queries), n, dim, k, n_docs,
         split_len, vec, cand_v, cand_i);
     return cudaGetLastError();
@@ -1083,15 +1354,17 @@ cudaError_t launch_stream(const void* docs, const void* queries, long long n, in
 template <typename T, int NQ>
 cudaError_t stream_occupancy_q(int dim, int k, int* blocks_per_sm, int* registers,
                                int* local_bytes) {
-    cudaError_t err = stream_attributes<T, NQ>(dim, k);
+    if (k < 1 || k > MAX_K) return cudaErrorInvalidValue;
+    StreamKernel<T> kernel;
+    cudaError_t err = stream_kernel<T, NQ>(dim, k, &kernel);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, score_topk_stream<T, NQ>);
+    err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
     *registers = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, score_topk_stream<T, NQ>, STREAM_THREADS, stream_smem(NQ, dim, k));
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, STREAM_THREADS,
+                                                         stream_smem(NQ, dim, k));
 }
 
 template <typename T>

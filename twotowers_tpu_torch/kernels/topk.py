@@ -36,6 +36,9 @@ STREAM_ROWS = 128   # Q <= 4 splits are a whole number of these rows: one block
                     # iteration of score_topk_stream reads 64 (f32) or 128 (bf16)
 BATCH_TILE_N = 256  # score_topk.cu:BN, doc rows per tile of the Q >= 5 pass 1
 WIDE_K = 14         # score_topk.cu:WIDE_K: at Q >= 5, k above it selects by warps
+STREAM_WIDE_K = 10  # score_topk.cu:STREAM_WIDE_K: at Q <= 4, k above it batches survivors
+STREAM_QUEUE = 64   # score_topk.cu:STREAM_QUEUE: survivors a wide Q <= 4 warp queues a query
+STREAM_WARPS = 8    # score_topk.cu:STREAM_WARPS, warps of a Q <= 4 block
 STAGING_BYTES = 37_376  # score_topk.cu: 2 * STAGE floats of the Q >= 5 pass 1
 
 MERGE_SMEM_BUDGET = 110 * 1024  # shared bytes of a pass-2 block, at most: 2 blocks an SM
@@ -80,8 +83,28 @@ def tiles_smem(k: int) -> int:
     32 lists of values and indices, each with a padding word after every 32
     pairs; else the narrow one's lists and two counts a query."""
     if k > WIDE_K:
-        return STAGING_BYTES + 8 * 32 * (k + -(-k // 32))
+        return STAGING_BYTES + 8 * 32 * list_stride(k)
     return STAGING_BYTES + 8 * 32 * k + 8 * 32
+
+
+def list_stride(k: int) -> int:
+    """Words of a skewed list of ``k`` pairs' values (or indices): a padding
+    word after every 32 (``score_topk.cu:list_stride``)."""
+    return k + -(-k // 32)
+
+
+def stream_smem(n_queries: int, dim: int, k: int) -> int:
+    """Shared bytes of a Q <= 4 pass-1 block (``score_topk.cu:stream_smem``):
+    the queries widened to f32 and zero-padded to whole 128 columns, then
+    the lists of the selection that k takes. Above ``STREAM_WIDE_K`` each
+    warp's skewed list of k values and indices and its queue of
+    ``STREAM_QUEUE`` a query; else each warp's list of k and its fill
+    count a query."""
+    dpad = -(-dim // 128) * 128
+    lists = STREAM_WARPS * n_queries
+    if k > STREAM_WIDE_K:
+        return 4 * n_queries * dpad + 8 * lists * (list_stride(k) + list_stride(STREAM_QUEUE))
+    return 4 * n_queries * dpad + 8 * lists * k + 4 * lists
 
 
 def merge_smem(lists: int, k: int) -> int:

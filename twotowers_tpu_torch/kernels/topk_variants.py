@@ -13,23 +13,28 @@ the count that the plan once fixed, and a source without
 ``score_topk_merge_launch`` (pass 2 as one block a query, before the merge
 tree) is launched without a merge group. ``--only`` keeps the named
 variants. Each variant is first held bit-equal to the plain version on
-integer-valued inputs (Q=1, 4 and 257 at k=10, Q=1 and 257 at k=256, Q=33
-at k=100, Q=5 at k=33), then timed with CUDA events at N=1M, D=128
-(``SHAPES``: Q=1 and 4 in f32 and bf16, Q=1 at k=256 in f32 and bf16, Q=32
-in f32 and bf16, Q=256 in f32 and bf16, Q=32 and 256 at k=256 in f32 and
-bf16, Q=32 at k=100 in f32; k=10 elsewhere; ``--k-sweep`` takes
-``K_SWEEP`` instead, Q=32 and 256 in f32 at k = 10 to 32, where the two
-selections of the Q >= 5 pass meet) in the order A B C ... C B A; a time
+integer-valued inputs (Q=1, 4 and 257 at k=10, Q=1, 4 and 257 at k=256,
+Q=1 and 33 at k=100, Q=2 at k=33, Q=3 at k=64, Q=5 at k=33), except the
+variants in ``CUT``, which skip a stage and are timed only; then timed
+with CUDA events at N=1M, D=128 (``SHAPES``: Q=1 and 4 in f32 and bf16,
+Q=1 and 4 at k=256 in f32 and bf16, Q=1 at k=100 in f32, Q=32 in f32 and
+bf16, Q=256 in f32 and bf16, Q=32 and 256 at k=256 in f32 and bf16, Q=32
+at k=100 in f32; k=10 elsewhere; ``--k-sweep`` takes ``K_SWEEP``
+instead: Q=32 and 256 in f32 at k = 10 to 32, where the two selections
+of the Q >= 5 pass meet, and Q=1 and 4 in f32 and bf16 at k = 10 to 256,
+where those of the Q <= 4 pass meet) in the order A B C ... C B A; a time
 is the mean of its two turns. Prints one JSON line per variant, with its
-Q >= 5 blocks (shared bytes, blocks per SM, registers and local bytes at
-k=10 and k=256; the last two null for a source that does not report
-them) and the device ms by kernel (``torch.profiler``: pass 1 and each
-level of pass 2) at every shape for the shipped kernel and "against"
-(before the timing, a line holds their outputs bit-equal at every shape,
-and the run fails where they are not); then the opcode counts of the
-shipped f32 passes 1 (``cuobjdump -sass``) and the SM clock and power
-that ``nvidia-smi`` samples while the shipped kernel runs Q=256 f32 and
-Q=1 f32 for a few seconds each; last the card's name and power limit.
+blocks (shared bytes, blocks per SM, registers and local bytes of the
+Q <= 4 pass at Q=1 and 4, k=10 and 256, and of the Q >= 5 pass at k=10
+and 256; the last two null for a source that does not report them), the
+inserts a warp makes a query (variants with a count of them) and the
+device ms by kernel (``torch.profiler``: pass 1 and each level of pass 2)
+at every shape for the shipped kernel and "against" (before the timing,
+a line holds their outputs bit-equal at every shape, and the run fails
+where they are not); then the opcode counts of the shipped f32 passes 1
+(``cuobjdump -sass``) and the SM clock and power that ``nvidia-smi``
+samples while the shipped kernel runs Q=256 f32 and Q=1 f32 for a few
+seconds each; last the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -54,8 +59,11 @@ SHAPES = [(1, torch.float32, K), (1, torch.bfloat16, K), (4, torch.float32, K),
           (4, torch.bfloat16, K), (1, torch.float32, 256), (1, torch.bfloat16, 256),
           (32, torch.float32, K), (32, torch.bfloat16, K), (256, torch.float32, K),
           (256, torch.bfloat16, K), (32, torch.float32, 256), (256, torch.float32, 256),
-          (32, torch.bfloat16, 256), (256, torch.bfloat16, 256), (32, torch.float32, 100)]
+          (32, torch.bfloat16, 256), (256, torch.bfloat16, 256), (32, torch.float32, 100),
+          (4, torch.float32, 256), (4, torch.bfloat16, 256), (1, torch.float32, 100)]
 K_SWEEP = [(q, torch.float32, k) for q in (32, 256) for k in (10, 12, 14, 16, 24, 32)]
+K_SWEEP += [(q, dtype, k) for q in (1, 4) for dtype in (torch.float32, torch.bfloat16)
+            for k in (10, 14, 16, 24, 32, 64, 100, 256)]
 
 
 def one_full_wave(q, n, sm, per_sm):
@@ -73,6 +81,26 @@ def two_waves(q, n, sm, per_sm):
     return topk.plan(q, n, sm, 2 * per_sm)
 
 
+# the Q <= 4 pass's narrow selection (one insert a survivor) at every k
+STREAM_NARROW = (f"constexpr int STREAM_WIDE_K = {topk.STREAM_WIDE_K};",
+                 "constexpr int STREAM_WIDE_K = 256;")
+SELECTION_CUT = ("unsigned m = __ballot_sync(\n                FULL, live && (",
+                 "unsigned m = __ballot_sync(\n                FULL, live && s > 1.0e30f && (")
+END_MERGE_CUT = ("    if (warp < NQ) {\n", "    if (warp < 0) {\n")
+INSERTS_COUNTED = [
+    ("constexpr unsigned FULL = 0xffffffffu;\n",
+     "constexpr unsigned FULL = 0xffffffffu;\n__device__ unsigned long long stream_inserts = 0;\n"),
+    ("                m &= m - 1;\n",
+     "                if (lane == 0) atomicAdd(&stream_inserts, 1ull);\n                m &= m - 1;\n"),
+    ('extern "C" {\n',
+     'extern "C" {\n\n// The inserts counted since the last call, and the count set to 0.\n'
+     "unsigned long long score_topk_stream_inserts() {\n"
+     "    unsigned long long n = 0, zero = 0;\n"
+     "    cudaMemcpyFromSymbol(&n, stream_inserts, sizeof(n));\n"
+     "    cudaMemcpyToSymbol(stream_inserts, &zero, sizeof(zero));\n"
+     "    return n;\n}\n"),
+]
+
 # name -> (rewrites of the source, plan)
 VARIANTS = {
     "shipped": ([], topk.plan),
@@ -87,8 +115,9 @@ VARIANTS = {
                        topk.plan),
     "stream 16 warps": ([("constexpr int STREAM_WARPS = 8;",
                           "constexpr int STREAM_WARPS = 16;")], topk.plan),
-    "stream launch bound 3 blocks at every Q": ([("NQ == 1 ? 3 : 1)", "3)")], topk.plan),
-    "stream no launch bound": ([("NQ == 1 ? 3 : 1)", "1)")], topk.plan),
+    "stream launch bound 3 blocks at every Q": ([("NQ == 1 ? (WIDE ? 2 : 3) : 1)", "3)")],
+                                                topk.plan),
+    "stream no launch bound": ([("NQ == 1 ? (WIDE ? 2 : 3) : 1)", "1)")], topk.plan),
     "merge 256 threads": ([("constexpr int MERGE_THREADS = 512;",
                             "constexpr int MERGE_THREADS = 256;")], topk.plan),
     "merge 1024 threads": ([("constexpr int MERGE_THREADS = 512;",
@@ -120,7 +149,27 @@ VARIANTS = {
                                   topk.plan),
     "narrow selection at every k": ([("constexpr int WIDE_K = 14;",
                                       "constexpr int WIDE_K = 256;")], topk.plan),
+    # where the Q <= 4 pass switches from an insert a survivor to batches
+    "stream wide selection at every k": ([(STREAM_NARROW[0], "constexpr int STREAM_WIDE_K = 0;")],
+                                         topk.plan),
+    "stream narrow selection at every k": ([STREAM_NARROW], topk.plan),
+    # the wide Q <= 4 selection's queue, and its blocks an SM at Q=1
+    "stream queue of 32": ([("constexpr int STREAM_QUEUE = 64;",
+                             "constexpr int STREAM_QUEUE = 32;")], topk.plan),
+    "stream queue of 128": ([("constexpr int STREAM_QUEUE = 64;",
+                              "constexpr int STREAM_QUEUE = 128;")], topk.plan),
+    "stream wide launch bound 3 blocks": ([("NQ == 1 ? (WIDE ? 2 : 3) : 1)",
+                                            "NQ == 1 ? 3 : 1)")], topk.plan),
+    # the narrow Q <= 4 selection by stage: its prune and inserts never taken
+    # (a score above 1e30 never comes), then its k-round end-of-split merge
+    # skipped as well; and with a count of its inserts (one a warp_insert)
+    "stream narrow selection cut": ([STREAM_NARROW, SELECTION_CUT], topk.plan),
+    "stream narrow selection and end merge cut": ([STREAM_NARROW, SELECTION_CUT, END_MERGE_CUT],
+                                                  topk.plan),
+    "stream narrow inserts counted": ([STREAM_NARROW, *INSERTS_COUNTED], topk.plan),
 }
+# variants whose output is not the function's: timed, never checked
+CUT = {"stream narrow selection cut", "stream narrow selection and end merge cut"}
 AGAINST = "against"
 
 
@@ -200,6 +249,8 @@ def launcher(lib: ctypes.CDLL, plan):
     tree = hasattr(lib, "score_topk_merge_launch")  # else pass 2 takes no group
     lib.score_topk_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64, i32,
                                       ptr, ptr, ptr, ptr] + [i32] * tree + [ptr]
+    if hasattr(lib, "score_topk_stream_inserts"):
+        lib.score_topk_stream_inserts.restype = ctypes.c_ulonglong
     occupancy = {}
 
     def per_sm(dtype, q, k=K):
@@ -221,11 +272,14 @@ def launcher(lib: ctypes.CDLL, plan):
             occupancy[key] = tuple(o.value if o.value >= 0 else None for o in out)
         return occupancy[key]
 
+    def plan_of(q, dtype, k, n=N):
+        sm = torch.cuda.get_device_properties(0).multi_processor_count
+        return plan(q, n, sm, per_sm(dtype, q, k)[1])
+
     def run(docs, queries, k=K):
         n, dim = docs.shape
         q = queries.shape[0]
-        sm = torch.cuda.get_device_properties(docs.device).multi_processor_count
-        rows, n_splits, split_len = plan(q, n, sm, per_sm(docs.dtype, q, k)[1])
+        rows, n_splits, split_len = plan_of(q, docs.dtype, k, n)
         cand_v = torch.empty((q, n_splits, k), dtype=torch.float32, device=docs.device)
         cand_i = torch.empty((q, n_splits, k), dtype=torch.int32, device=docs.device)
         out_v = torch.empty((q, k), dtype=torch.float32, device=docs.device)
@@ -239,6 +293,7 @@ def launcher(lib: ctypes.CDLL, plan):
             raise RuntimeError(f"launch failed: cudaError_t {err}")
         return out_v, out_i
 
+    run.lib, run.plan_of = lib, plan_of
     return run, per_sm
 
 
@@ -301,7 +356,10 @@ def main() -> int:
         ints = torch.randint(-2, 3, (100_003, 128), device=dev, generator=gen).float()
         qints = torch.randint(-2, 3, (257, 128), device=dev, generator=gen).float()
         for dtype in (torch.float32, torch.bfloat16):
-            for q, k in ((1, K), (4, K), (257, K), (1, 256), (257, 256), (33, 100), (5, 33)):
+            for q, k in ((1, K), (4, K), (257, K), (1, 256), (4, 256), (1, 100), (2, 33),
+                         (3, 64), (257, 256), (33, 100), (5, 33)):
+                if name in CUT:
+                    break
                 got = run(ints.to(dtype), qints[:q].to(dtype), k)
                 want = score_topk_reference(ints.to(dtype), qints[:q], k)
                 if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
@@ -309,7 +367,7 @@ def main() -> int:
                                          "plain version's result")
         runs[name] = (run, {"ptxas": ptxas, "occupancy_f32_bf16": {
             f"q{q} k{k}": [per_sm(torch.float32, q, k), per_sm(torch.bfloat16, q, k)]
-            for q, k in ((1, K), (4, K), (5, K), (5, 256))}})
+            for q, k in ((1, K), (4, K), (1, 256), (4, 256), (5, K), (5, 256))}})
     docs = torch.randn(N, DIM, device=dev, generator=gen)
     docs /= docs.norm(dim=1, keepdim=True)
     inputs = {dtype: docs.to(dtype) for dtype in (torch.float32, torch.bfloat16)}
@@ -339,8 +397,21 @@ def main() -> int:
                 label(q, dtype, k): device_ms_by_kernel(
                     lambda: run(inputs[dtype], queries[q].to(dtype), k))
                 for q, dtype, k in shapes}
-        print(json.dumps({"variant": name, "ms": ms, "turns": times[name], **info}), flush=True)
-    for kernel in ("score_topk_tilesIfLb0", "score_topk_tilesIfLb1", "score_topk_streamIfLi1"):
+        if hasattr(run.lib, "score_topk_stream_inserts"):  # a warp's inserts a query
+            info["inserts_per_warp_and_query"] = {}
+            for q, dtype, k in shapes:
+                if q > 4:
+                    continue
+                run.lib.score_topk_stream_inserts()
+                run(inputs[dtype], queries[q].to(dtype), k)
+                torch.cuda.synchronize()
+                n_splits = run.plan_of(q, dtype, k)[1]
+                info["inserts_per_warp_and_query"][label(q, dtype, k)] = (
+                    run.lib.score_topk_stream_inserts() / (n_splits * 8 * q))
+        print(json.dumps({"variant": name, "ms": ms, "turns": times[name], "cut": name in CUT,
+                          **info}), flush=True)
+    for kernel in ("score_topk_tilesIfLb0", "score_topk_tilesIfLb1", "score_topk_streamIfLi1ELb0",
+                   "score_topk_streamIfLi1ELb1"):
         print(json.dumps({f"sass_opcodes shipped {kernel}":
                           sass_opcodes(libs["shipped"][2], kernel)}), flush=True)
     for q in (256, 1):
