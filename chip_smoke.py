@@ -22,7 +22,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               k=256 (f32, bf16) and on crafted lists at S = 1, 33, 1024,
               then timed beside the plain version, a library yardstick and
               its bound, with pass 1 and each level of pass 2 apart at Q=1
-              and at k=100 and 256.
+              and at k=100 and 256. Last, two calls of ``score_topk`` that
+              take the torch route (no kernel launch) with bf16 docs and
+              f32 queries: k=300 at D=128, scored unrounded as JAX's
+              ``score_topk_xla`` scores it (``score_topk_unrounded``, held
+              against an f64 rescoring), and k=10 at D=1040, where the
+              route keeps the Pallas kernel's cast (``score_topk_reference``).
 4. serve   -- the default config (char tokenizer, max_len 64, lookup
               embedding 64, mean tower 128, f32) at full width with random
               weights from the seed, over ``--n-docs`` synthetic texts:
@@ -509,7 +514,59 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                                                   (256, torch.bfloat16, 256),
                                                   (32, torch.float32, 100))},
             "tiles_blocks": tiles_blocks, "stream_blocks": stream_blocks,
-            "merge_blocks": merge_blocks}
+            "merge_blocks": merge_blocks,
+            "torch_route": torch_route_rows(card, docs_bf16, queries[32], gen)}
+
+
+def torch_route_rows(card: dict, docs_bf16, queries, gen) -> list:
+    """``score_topk`` on bf16 docs and f32 queries at shapes the kernel does
+    not take, so the torch route: queries rounded as the JAX dispatcher
+    rounds them. k=300 at D=128 is scored unrounded (``score_topk_xla``'s
+    rule): its results are ``score_topk_unrounded``'s, its scores within
+    1e-5 of an f64 rescoring of its indices with unrounded queries, and the
+    casting version's scores are not. k=10 at D=1040 keeps the Pallas
+    kernel's cast (``score_topk_reference``), held the same way with the
+    queries rounded to bf16."""
+    from twotowers_tpu_torch.kernels import topk
+    from twotowers_tpu_torch.ops import topk_score
+
+    plain = {"unrounded": topk_score.score_topk_unrounded, "cast": topk_score.score_topk_reference}
+    dev = docs_bf16.device
+    wide = torch.randn(docs_bf16.shape[0], 1040, device=dev, generator=gen)
+    wide = (wide / wide.norm(dim=1, keepdim=True)).bfloat16()
+    q_wide = torch.randn(queries.shape[0], 1040, device=dev, generator=gen)
+    q_wide = q_wide / q_wide.norm(dim=1, keepdim=True)
+    rows = []
+    for docs, q, k, rule, other in ((docs_bf16, queries, 300, "unrounded", "cast"),
+                                    (wide, q_wide, 10, "cast", "unrounded")):
+        launches, calls = topk.LAUNCHES, topk_score.TORCH_ROUTE_CALLS
+        got_v, got_i = topk_score.score_topk(docs, q, k)
+        torch.cuda.synchronize()
+        if topk.LAUNCHES != launches or topk_score.TORCH_ROUTE_CALLS != calls + 1:
+            raise AssertionError(f"D={docs.shape[1]} k={k}: not the torch route alone")
+        want_v, want_i = plain[rule](docs, q, k)
+        if not (torch.equal(got_i, want_i) and torch.equal(got_v, want_v)):
+            raise AssertionError(f"D={docs.shape[1]} k={k}: not {plain[rule].__name__}'s result")
+
+        def f64_gap(scores, idx, rounding):  # |scores - f64 scores of idx| by a rule
+            q64 = q.double() if rounding == "unrounded" else q.to(docs.dtype).double()
+            want64 = (docs[idx.long()].double() * q64[:, None, :]).sum(-1)  # (Q, k)
+            return float((scores.double() - want64).abs().max())
+
+        err = f64_gap(got_v, got_i, rule)
+        other_err = f64_gap(*plain[other](docs, q, k), rule)
+        if err > 1e-5 or other_err <= 1e-5:
+            raise AssertionError(f"D={docs.shape[1]} k={k}: {err} from the {rule} f64 scores, "
+                                 f"the {other} version {other_err}")
+        row = {"case": f"torch route {rule} bf16 docs f32 queries", "n": docs.shape[0],
+               "d": docs.shape[1], "q": q.shape[0], "k": k, "rule": rule,
+               "plain": plain[rule].__name__, "max_abs_err_f64": err,
+               f"{other}_max_abs_err_f64": other_err,
+               "ms": cuda_ms(lambda: topk_score.score_topk_torch(docs, q, k)),
+               "card": card["nvidia_smi"]}
+        emit("kernels", **row)
+        rows.append(row)
+    return rows
 
 
 # ---- 4. serve -----------------------------------------------------------------
@@ -549,7 +606,7 @@ def serve_phase(card: dict, n_docs: int, seed: int, device="cuda") -> dict:
     from twotowers_tpu_torch.index.two_tower import TwoTowerSearch
     from twotowers_tpu_torch.kernels import topk
     from twotowers_tpu_torch.ops import topk_score
-    from twotowers_tpu_torch.ops.topk_score import score_topk_reference
+    from twotowers_tpu_torch.ops.topk_score import score_topk_reference, score_topk_unrounded
     from twotowers_tpu_torch.serve.app import ModelRuntime
     from twotowers_tpu_torch.serve.service import RetrievalService
     from twotowers_tpu_torch.tokenizers import build_tokenizer
@@ -622,7 +679,7 @@ def serve_phase(card: dict, n_docs: int, seed: int, device="cuda") -> dict:
     collection = service.collection
     device_unit, n_index = collection._device_index()
     q_vec = collection._unit_queries(runtime.encode_device([exact[1]], "query"))
-    want_v, want_i = score_topk_reference(device_unit, q_vec, 300, n_index)
+    want_v, want_i = score_topk_unrounded(device_unit, q_vec, 300, n_index)
     got_i = torch.tensor([[position[r["document"]] for r in wide]], dtype=torch.int32)
     got_v = torch.tensor([[1.0 - r["distance"] for r in wide]])
     if len(wide) != 300 or not torch.equal(got_i, want_i.cpu()):

@@ -6,7 +6,11 @@ against ``score_topk_xla`` and against the Pallas kernel in interpret mode
 N >= 256), on the cases of the JAX package's own kernel tests. Scores agree
 within rtol 1e-5 (one f32 product summed in another order) and indices
 exactly. ``test_torch_topk_kernel.py`` holds the CUDA kernel against the
-plain version on the same cases.
+plain version on the same cases. With bf16 docs and f32 queries the
+queries are rounded as JAX's dispatcher rounds them: cast to the docs'
+dtype where its Pallas kernel takes the shape, unrounded at k > 256
+(``score_topk_xla``); at N < 2 * tile_n and Q > 1024 the port casts where
+JAX does not (TPU tuning the port does not copy).
 """
 
 import jax.numpy as jnp
@@ -20,7 +24,8 @@ from twotowers_tpu.ops.topk_score import score_topk as jax_score_topk
 from twotowers_tpu.ops.topk_score import score_topk_xla
 from twotowers_tpu_torch.kernels import topk
 from twotowers_tpu_torch.ops import topk_score
-from twotowers_tpu_torch.ops.topk_score import score_topk, score_topk_reference
+from twotowers_tpu_torch.ops.topk_score import (score_topk, score_topk_reference,
+                                                score_topk_torch, score_topk_unrounded)
 
 
 def _jax_paths(docs, queries, k, n_docs):
@@ -68,7 +73,7 @@ def test_route_rule_on_the_card(monkeypatch, n, dim, k, route):
     counted apart. Tensors on the meta device stand in for the card's."""
     taken = []
     monkeypatch.setattr(topk_score, "score_topk_cuda", lambda *a: taken.append("kernel"))
-    monkeypatch.setattr(topk_score, "score_topk_reference", lambda *a: taken.append("torch"))
+    monkeypatch.setattr(topk_score, "score_topk_plain", lambda *a: taken.append("torch"))
     before = topk_score.TORCH_ROUTE_CALLS
     score_topk(torch.empty(n, dim, device="meta"), torch.empty(2, dim, device="meta"), k)
     assert taken == [route]
@@ -108,6 +113,85 @@ def test_torch_route_matches_jax_for_large_k(np_rng):
     want_s, want_i = score_topk_xla(jnp.asarray(docs), jnp.asarray(queries), 300, 650)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-5)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+def _bf16_case(rng, n, dim, q):
+    """Normal docs rounded to bf16 (as f32 numpy) and f32 queries: the
+    inputs on which the two rounding rules part."""
+    docs = rng.normal(size=(n, dim)).astype(np.float32)
+    docs = torch.from_numpy(docs).bfloat16().float().numpy()
+    return docs, rng.normal(size=(q, dim)).astype(np.float32)
+
+
+def _assert_same(got, want, err_msg=""):
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]), rtol=1e-5,
+                               err_msg=err_msg)
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]), err_msg=err_msg)
+
+
+def _differ(a, b):
+    return not (np.allclose(np.asarray(a[0]), np.asarray(b[0]), rtol=1e-5)
+                and np.array_equal(np.asarray(a[1]), np.asarray(b[1])))
+
+
+def test_bf16_docs_at_large_k_are_scored_unrounded_as_jax_does(np_rng):
+    """k = 300 > 256 with bf16 docs and f32 queries: JAX sends the call to
+    score_topk_xla, whose product promotes the docs to f32 and does not
+    round the queries. The CPU route, the torch route and the plain
+    function score_topk_unrounded give its indices exactly; the casting
+    plain version does not."""
+    docs, queries = _bf16_case(np_rng, 700, 16, 3)
+    d, q = jnp.asarray(docs, jnp.bfloat16), jnp.asarray(queries)
+    want = {"score_topk": jax_score_topk(d, q, 300, 650), "xla": score_topk_xla(d, q, 300, 650)}
+    td, tq = torch.from_numpy(docs).bfloat16(), torch.from_numpy(queries)
+    got = {"cpu route": score_topk(td, tq, 300, 650),
+           "torch route": score_topk_torch(td, tq, 300, 650),
+           "unrounded": score_topk_unrounded(td, tq, 300, 650)}
+    for name, out in got.items():
+        assert out[0].dtype == torch.float32 and out[1].dtype == torch.int32
+        for path, ref in want.items():
+            _assert_same(out, ref, f"{name} against {path}")
+    assert _differ(score_topk_reference(td, tq, 300, 650), want["xla"])
+
+
+def test_torch_route_keeps_the_pallas_cast_above_the_kernels_width():
+    """D = 1040 > 1024, k = 10: the kernel declines, the torch route casts
+    as JAX's Pallas kernel does, which takes the shape (N = 4096 = two
+    tiles of its default 2048; interpret mode on the CPU)."""
+    docs, queries = _bf16_case(np.random.default_rng(5), 4096, 1040, 3)
+    d, q = jnp.asarray(docs, jnp.bfloat16), jnp.asarray(queries)
+    want = jax_score_topk(d, q, 10)
+    _assert_same(want, score_topk_pallas(d, q, 10, interpret=True), "pallas")
+    td, tq = torch.from_numpy(docs).bfloat16(), torch.from_numpy(queries)
+    before = topk_score.TORCH_ROUTE_CALLS
+    _assert_same(score_topk_torch(td, tq, 10), want, "torch route")
+    assert topk_score.TORCH_ROUTE_CALLS == before + 1
+    _assert_same(score_topk(td, tq, 10), want, "cpu route")
+    assert _differ(score_topk_xla(d, q, 10), want)
+
+
+@pytest.mark.parametrize("clause,n,q", [("N < 2 * tile_n", 700, 3), ("Q > 1024", 4096, 1025)])
+def test_port_casts_where_the_tpu_kernel_declines(np_rng, clause, n, q):
+    """Deviation, on purpose: the TPU kernel declines N < 2 * tile_n and
+    Q > 1024 (VMEM sizing), so JAX's score_topk gives score_topk_xla's
+    unrounded result. The port's kernel takes both shapes and casts, and
+    its CPU route follows it: the Pallas rule's result (the Pallas kernel
+    at tile_n=128 for the N clause; at Q > 1024 it declines every tile, so
+    score_topk_xla of the queries cast to bf16)."""
+    docs, queries = _bf16_case(np_rng, n, 16, q)
+    d, q_ = jnp.asarray(docs, jnp.bfloat16), jnp.asarray(queries)
+    jax_out = jax_score_topk(d, q_, 10)
+    _assert_same(jax_out, score_topk_xla(d, q_, 10), "JAX takes the XLA route")
+    assert score_topk_pallas(d, q_, 10, interpret=True) is None
+    if clause == "Q > 1024":
+        pallas_rule = score_topk_xla(d, q_.astype(jnp.bfloat16), 10)
+    else:
+        pallas_rule = score_topk_pallas(d, q_, 10, tile_n=128, interpret=True)
+    td, tq = torch.from_numpy(docs).bfloat16(), torch.from_numpy(queries)
+    assert topk_score.kernel_takes(td, 10)
+    got = score_topk(td, tq, 10)
+    _assert_same(got, pallas_rule, clause)
+    assert _differ(got, jax_out)
 
 
 def chunk_candidates(docs, queries, s, k):
