@@ -10,11 +10,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               together) and the native tokenizer, from this checkout.
 3. kernels -- the score + top-k kernel's Q <= 4 block and Q >= 5 block
               (registers, local bytes, shared-memory bytes and blocks per
-              SM; the Q >= 5 block at k=10 and k=256, its two selections),
+              SM; the Q >= 5 block at k=10 and k=256, its two selections,
+              and its engine: FFMA on the CUDA cores for f32 docs,
+              mma.sync on the tensor cores for bf16),
               then the kernel against its plain PyTorch version on the card
               at the serve path's shapes and at edge cases (Q=1 twins of
               the batch's; Q >= 5 at k=256: bf16, Q=257, all scores tied,
-              n_docs < N), then pass 1 alone (``score_topk_candidates``)
+              n_docs < N; the bf16 tensor-core pass on integer-valued
+              inputs bit-equal at Q=64, k=32 and Q=257, k=256, and on
+              float inputs at Q=257, D=1024, k=10 and 256), then pass 1
+              alone (``score_topk_candidates``)
               at Q=32, k=256 bit-equal to the plain per-split top-k
               (``candidates_reference``) on integer-valued inputs, then
               pass 2 alone (``merge_topk_cuda``, its blocks per level)
@@ -127,6 +132,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from twotowers_tpu_torch.kernels.topk import agree
+
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 CUDA cores; bf16 tensor cores
@@ -190,32 +197,6 @@ def build_phase() -> None:
 
 
 # ---- 3. kernels ---------------------------------------------------------------
-
-def agree(docs, queries, got, want, n_docs=None, rel=1e-5):
-    """Hold a top-k against the plain version's. Scores within rtol 1e-5,
-    atol 1e-6. Indices equal, except where the two candidates' scores,
-    recomputed in f64, differ by less than ``rel`` relative: cuBLAS and the
-    kernel sum in other orders, and near-ties at the k-th place of 1M docs
-    happen. Returns (max_abs_err, near-tie swaps)."""
-    gv, gi = got
-    wv, wi = want
-    torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-6)
-    differ = gi != wi
-    if differ.any():
-        q_idx, pos = differ.nonzero(as_tuple=True)
-        q64 = queries.to(docs.dtype).double()[q_idx]
-
-        def rescore(idx):
-            idx = idx[q_idx, pos].long()
-            s = (q64 * docs[idx].double()).sum(1)
-            return s if n_docs is None else torch.where(idx < n_docs, s, -1e30)
-
-        sg, sw = rescore(gi), rescore(wi)
-        near = (sg - sw).abs() <= rel * torch.maximum(sg.abs(), sw.abs())
-        if not bool(near.all()):
-            raise AssertionError(f"{int((~near).sum())} indices differ beyond a near-tie")
-    return float((gv - wv).abs().max()), int(differ.sum())
-
 
 def cuda_ms(fn, target_s: float = 0.3) -> float:
     """Mean ms of ``fn`` on the card from CUDA events, after warm-up."""
@@ -296,16 +277,20 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     tiles_blocks, stream_blocks = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         # k=10 takes the narrow selection (one thread a query), k=256 the
-        # wide one (warps); each needs 2 blocks an SM and no spills
+        # wide one (warps); each needs no spills and 2 blocks an SM, 3 at
+        # k=10. f32 docs sum on the CUDA cores, bf16 on the tensor cores
+        engine = "mma.sync m16n8k16 bf16" if dtype == torch.bfloat16 else "fmaf f32"
         occupancy = {f"k{k}": {**tiles_occupancy(dev, dtype, k),
-                               "selection": "wide" if k > WIDE_K else "narrow"}
+                               "selection": "wide" if k > WIDE_K else "narrow",
+                               "engine": engine}
                      for k in (10, 256)}
         tiles_blocks[str(dtype)] = occupancy
-        emit("kernels", case="Q >= 5 pass-1 block", dtype=str(dtype), **occupancy)
+        emit("kernels", case="Q >= 5 pass-1 block", dtype=str(dtype), engine=engine,
+             **occupancy)
         for k, block in zip((10, 256), occupancy.values()):
-            if (block["local_bytes"] or block["blocks_per_sm"] < 2
+            if (block["local_bytes"] or block["blocks_per_sm"] < (3 if k == 10 else 2)
                     or block["smem_bytes"] != tiles_smem(k)):
-                raise AssertionError(f"Q >= 5 pass 1 at k={k}: spills, fewer than 2 blocks "
+                raise AssertionError(f"Q >= 5 pass 1 at k={k}: spills, too few blocks "
                                      f"per SM or not topk.tiles_smem's bytes: {block}")
         # the Q <= 4 pass keeps 8 rows x 16 bytes in flight a lane, 32 KB a
         # block, where the card needs ~18 KB an SM; its launch bound asks for
@@ -380,6 +365,20 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     ints = torch.randint(-2, 3, (n_docs // 4, 64), device=dev, generator=gen).float()
     qints = torch.randint(-2, 3, (64, 64), device=dev, generator=gen).float()
     check("integer-valued", ints, qints, 32, exact=True)
+    # bf16 docs at Q >= 5 sum on the tensor cores: exact on integers, in
+    # another order than cuBLAS on floats (data from its own generator)
+    mma_gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    check("integer-valued bf16 q64 (tensor cores)", ints.bfloat16(), qints, 32, exact=True)
+    q257 = torch.randint(-2, 3, (257, 64), device=dev, generator=mma_gen).float()
+    check("integer-valued bf16 q257 k=256 (tensor cores)", ints.bfloat16(), q257, 256,
+          exact=True)
+    wide = torch.randn(n_docs // 4, 1024, device=dev, generator=mma_gen)
+    wide = (wide / wide.norm(dim=1, keepdim=True)).bfloat16()
+    q1024 = torch.randn(257, 1024, device=dev, generator=mma_gen)
+    q1024 /= q1024.norm(dim=1, keepdim=True)
+    for k in (10, 256):
+        check(f"bf16 q257 d1024 k={k} (tensor cores)", wide, q1024, k)
+    del wide
     # the Q <= 4 pass: twins of the cases above at Q=1 (and Q=4)
     check("ragged n q1", docs[:ragged], queries[1], 10)
     check("ragged n q4 bf16", docs_bf16[:ragged], unit(4, 128), 10)
@@ -513,6 +512,8 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                                                   (32, torch.bfloat16, 256),
                                                   (256, torch.bfloat16, 256),
                                                   (32, torch.float32, 100))},
+            "batch_bf16": {f"q{q} k{k}": timings[(q, torch.bfloat16, k)]
+                           for q in (32, 256) for k in (10, 256)},
             "tiles_blocks": tiles_blocks, "stream_blocks": stream_blocks,
             "merge_blocks": merge_blocks,
             "torch_route": torch_route_rows(card, docs_bf16, queries[32], gen)}
@@ -2472,6 +2473,14 @@ def main() -> int:
             "pass1_check": "score_topk_candidates bit-equal to candidates_reference at Q=32, "
                            "k=256 (integer-valued, f32 and bf16)",
             "shape": {"n": args.n_docs, "d": 128}},
+        "batch_bf16_tensor_cores": {**{name: {key: row[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for name, row in topk_row["batch_bf16"].items()},
+            "engine": "mma.sync m16n8k16 bf16 -> f32 (score_topk_tiles<__nv_bfloat16, *>)",
+            "pass1_blocks": topk_row["tiles_blocks"]["torch.bfloat16"],
+            "check": "integer-valued bit-equal at Q=64 k=32 and Q=257 k=256; float at "
+                     "Q=257 D=1024 k=10 and 256 within the tolerance above",
+            "shape": {"n": args.n_docs, "d": 128, "dtype": "bfloat16"}},
         "pretrained_search_cli": pretrained["search_cli"], "pretrained_glove": pretrained["glove"],
         "card": card["nvidia_smi"],
     }, {

@@ -7,7 +7,10 @@ without JAX. There the repo's conftest (which imports JAX) is left out:
 
 The tests marked ``cuda`` skip where there is no card. Scores agree within
 rtol 1e-5, atol 1e-6 (f32 sums in another order than cuBLAS's), indices
-exactly: the seeded cases have no near-ties. ``test_torch_topk.py`` holds
+exactly: the seeded cases have no near-ties; the float cases of the bf16
+tensor-core pass at 1M-scale shapes are held by ``topk.agree``, which
+allows near-ties. Integer-valued inputs sum exactly in any order and are
+held bit for bit. ``test_torch_topk.py`` holds
 the plain version against the JAX package on the same cases. Pass 2 alone
 is held bit for bit against its plain merge on candidate lists from
 ``chip_smoke.crafted_lists``, which imports no JAX either.
@@ -200,7 +203,7 @@ def test_stream_smem_fits_a_block_at_every_width(q, k):
 
 
 CONSTANTS = ["STREAM_WIDE_K", "WIDE_K", "STREAM_QUEUE", "STREAM_WARPS", "MAX_K",
-             "MAX_SPLITS"]
+             "MAX_SPLITS", "MMA_DEPTH"]
 
 
 @pytest.mark.parametrize("name", CONSTANTS)
@@ -211,6 +214,83 @@ def test_python_constants_mirror_the_cuda_source(name):
     source = (Path(topk.__file__).resolve().parents[1] / "csrc" / "score_topk.cu").read_text()
     found = re.findall(rf"^constexpr int {name} = (\d+);", source, flags=re.M)
     assert found == [str(getattr(topk, name))]
+
+
+def test_mma_stages_fit_the_staging_bytes():
+    """The bf16 Q >= 5 kernel keeps tiles_smem's bytes: its two cp.async
+    stages (256 doc rows and 32 query rows of MMA_DEPTH bf16 each, 36,864
+    bytes) fit in the f32 kernel's staging bytes; the narrow selection's
+    queues (32 queries x 128 docs, values and indices) fit in both stages,
+    the wide warps' skewed queues of 256 pairs in one."""
+    stage = (topk.BATCH_TILE_N + 32) * topk.MMA_DEPTH * 2
+    assert 2 * stage == 36_864 <= topk.STAGING_BYTES
+    assert 2 * 4 * 32 * topk.BATCH_TILE_N // 2 <= 2 * stage
+    assert 4 * 2 * 4 * topk.list_stride(topk.BATCH_TILE_N) <= stage
+
+
+def _mma_doc(m, r):  # score_topk.cu:mma_doc, the doc that row r of M-tile m multiplies
+    return 128 * (m >> 3) + 16 * (r & 7) + 8 * (m & 1) + 4 * (r >> 3) + ((m >> 1) & 3)
+
+
+def _doc_slot(d):  # score_topk.cu:doc_slot, bits 0 and 4 swapped
+    return (d & ~0x11) | ((d >> 4) & 1) | ((d & 1) << 4)
+
+
+def test_mma_quad_transpose_leaves_the_cuda_core_layout():
+    """score_topk.cu's quad_transpose, step by step on (query, doc) labels
+    of one warp's C fragments (m16n8k16: lane (g, t) holds rows g and g + 8
+    of every M-tile for queries 2t and 2t + 1; row r of M-tile m is doc
+    mma_doc(m, r)), leaves acc[i][jj] = query i of doc 4 lane + jj % 4 +
+    128 (jj / 4): the layout of the CUDA-core product, which both
+    selections read."""
+    c = {lane: [[(2 * (lane & 3) + (x & 1), _mma_doc(m, (lane >> 2) + 8 * (x >> 1)))
+                 for x in range(4)] for m in range(16)] for lane in range(32)}
+    w = {lane: [[None] * 16 for _ in range(4)] for lane in range(32)}
+    for p in range(2):
+        for m in range(16):
+            for lane in range(32):
+                odd = lane & 1
+                got = c[lane ^ 1][m][p] if not odd else c[lane ^ 1][m][2 + p]
+                w[lane][p][m] = got if odd else c[lane][m][p]
+                w[lane][2 + p][m] = c[lane][m][2 + p] if odd else got
+    acc = {lane: [[None] * 8 for _ in range(8)] for lane in range(32)}
+    for q in range(4):
+        for j in range(8):
+            for lane in range(32):
+                high = lane & 2
+                got = w[lane ^ 2][q][2 * j] if not high else w[lane ^ 2][q][2 * j + 1]
+                acc[lane][q][j] = got if high else w[lane][q][2 * j]
+                acc[lane][4 + q][j] = w[lane][q][2 * j + 1] if high else got
+    for lane in range(32):
+        for i in range(8):
+            for jj in range(8):
+                assert acc[lane][i][jj] == (i, 128 * (jj >> 2) + 4 * lane + (jj & 3))
+
+
+def test_mma_stage_layout_is_free_of_bank_conflicts():
+    """The bf16 stages: a doc lives in slot doc_slot(d), unit u of slot s at
+    byte 64 s + 16 (u ^ (s / 32) % 4). Each ldmatrix phase (8 lanes: one
+    16-byte unit of 8 rows of an M-tile) and each quarter-warp of cp.async
+    copies (slots e / 4, units e % 4 of e = tid + 128 i) falls on the 8
+    bank groups once; and a lane's A-fragment address is its M-tile 0's
+    plus a constant a tile, as mma_chunk computes it."""
+    def at(s, u):
+        return 64 * s + 16 * (u ^ ((s >> 5) & 3))
+
+    assert sorted(_doc_slot(d) for d in range(256)) == list(range(256))
+    assert sorted(_mma_doc(m, r) for m in range(16) for r in range(16)) == list(range(256))
+    for m in range(16):
+        for ks in range(2):
+            for lanes in (range(8 * j, 8 * j + 8) for j in range(4)):
+                banks = {at(_doc_slot(_mma_doc(m, lane & 15)), 2 * ks + (lane >> 4)) // 16 % 8
+                         for lane in lanes}
+                assert len(banks) == 8
+            for lane in range(32):
+                r, u = lane & 15, 2 * ks + (lane >> 4)
+                assert (at(_doc_slot(_mma_doc(m, r)), u) - at(_doc_slot(_mma_doc(0, r)), u)
+                        == 64 * _doc_slot(_mma_doc(m, 0)))
+    for e0 in range(0, 1024, 8):
+        assert len({at(e // 4, e % 4) // 16 % 8 for e in range(e0, e0 + 8)}) == 8
 
 
 CANDIDATE_CASES = [(1000, 10, 256, None), (1000, 100, 256, 700), (1000, 256, 512, None),
@@ -389,6 +469,43 @@ def test_batch_kernel_crosses_tile_edges(cuda, q, dim, dtype, k, off):
     want_s, want_i = score_topk_reference(docs, queries, k)
     assert torch.equal(got_s, want_s)
     assert torch.equal(got_i, want_i)
+
+
+MMA_FLOAT_CASES = [(q, dim, k, off) for q in (5, 33, 257) for dim in (64, 128, 1024)
+                   for k in (10, 15, 256) for off in (-1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,dim,k,off", MMA_FLOAT_CASES)
+def test_batch_kernel_bf16_float_data_agrees(cuda, q, dim, k, off):
+    """bf16 docs at Q >= 5 on the tensor cores with float data, N = 256 m
+    +- 1, both selections (k on both sides of WIDE_K): the products are
+    exact and only the order of the f32 sums differs from the plain
+    version's, so scores within rtol 1e-5, atol 1e-6 and indices equal
+    but for near-ties (topk.agree)."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 7919 + dim * 31 + k + off)
+    n = 256 * (150 if dim == 1024 else 600) + off
+    docs = torch.randn(n, dim, device=cuda, generator=gen)
+    docs = (docs / docs.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    queries = torch.randn(q, dim, device=cuda, generator=gen)
+    queries /= queries.norm(dim=1, keepdim=True)
+    before = topk.LAUNCHES
+    got = score_topk(docs, queries, k)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    topk.agree(docs, queries, got, score_topk_reference(docs, queries, k))
+
+
+@pytest.mark.cuda
+def test_batch_kernel_bf16_integer_data_is_bit_equal_at_q257_k256(cuda):
+    """bf16 docs, Q=257 (a ragged last query block), k=256 (the wide
+    selection), D=128 on the cp.async path: integer-valued inputs sum
+    exactly in any order, so the tensor cores' result is the plain
+    version's bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(257)
+    docs = torch.randint(-2, 3, (100_003, 128), device=cuda, generator=gen).to(torch.bfloat16)
+    queries = torch.randint(-2, 3, (257, 128), device=cuda, generator=gen).float()
+    _bit_equal(docs, queries, 256)
 
 
 @pytest.mark.cuda

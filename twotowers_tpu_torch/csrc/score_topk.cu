@@ -5,7 +5,9 @@
 // without writing the (Q, N) score matrix. Rows at or past n_docs score
 // -1e30 (score_topk_xla's mask), results come best first, and equal scores
 // go to the lower doc index (lax.top_k's order). Products are summed in f32
-// (bf16 docs widened exactly; no TF32, which would break exact indices).
+// (bf16 products are exact: widened on the CUDA cores, or on the tensor
+// cores at Q >= 5; f32 never goes through TF32, which would break exact
+// indices).
 //
 // Design: two passes, both launched by score_topk_launch.
 //  1. Grid (query block x doc split): each block keeps the top-k of its
@@ -144,12 +146,13 @@
 // score_topk_tiles (Q >= 5). At Q=256, N=1M, D=128 in f32 it is bound by
 // operations: 2*256*1e6*128 = 6.55e10 FLOP / 67 TFLOP/s = 0.98 ms against
 // 0.15 ms of doc reads. So the inner loop has to be bound by FFMA issue,
-// not by shared memory or by waiting on loads. It sums f32 FMAs on the CUDA
-// cores in a fixed order over D; a later change can run bf16 docs through
-// wgmma.
+// not by shared memory or by waiting on loads. f32 docs sum f32 FMAs on the
+// CUDA cores in a fixed order over D; bf16 docs sum on the tensor cores
+// (below).
 //  - A block of 128 threads owns 32 queries x BN=256 docs a tile; each
 //    thread keeps an 8 x 8 register tile (64 f32 sums): warp w holds
-//    queries 8w..8w+7, lane l docs 4l..4l+3 and 128+4l..128+4l+3.
+//    queries 8w..8w+7, lane l docs 4l..4l+3 and 128+4l..128+4l+3. Both
+//    selections read this layout, whichever engine made the sums.
 //  - Shared tiles are k-major, q_s[BK][32] and d_s[BK][BS]. For each depth
 //    step a thread reads its 8 queries as two float4 (one address across
 //    the warp: a broadcast) and its 8 docs as two float4: 4 vector loads,
@@ -157,16 +160,54 @@
 //  - BK=16 keeps the staging registers at 8 x 16 bytes (f32) a thread.
 //    BS=260 floats (260 = 4 mod 32 banks, a multiple of 4 for float4
 //    reads): a warp's transposing stores cover 16 rows x 2 column groups
-//    and fall on 32 banks (bf16 groups of 8 columns write odd groups'
-//    columns in an order rotated by 4 so that they do too); query stores
-//    put lane l on row l, bank l.
-//  - Staging: each doc row's chunk is read with 16-byte loads (4 f32, or
-//    8 bf16 widened in registers at the store), 16 rows x 32 bytes a warp
-//    instruction. Where D or a pointer is not 16-byte aligned the same
-//    registers are filled by scalar loads. The next chunk's loads (across
-//    tiles too) are issued before this chunk's FMAs and stored to the other
-//    of two buffers after them: one __syncthreads a chunk. cp.async and TMA
-//    cannot transpose or widen, so they are not used.
+//    and fall on 32 banks; query stores put lane l on row l, bank l.
+//  - Staging: each doc row's chunk is read with 16-byte loads, 16 rows x
+//    32 bytes a warp instruction. Where D or a pointer is not 16-byte
+//    aligned the same registers are filled by scalar loads. The next
+//    chunk's loads (across tiles too) are issued before this chunk's FMAs
+//    and stored to the other of two buffers after them: one __syncthreads
+//    a chunk. cp.async and TMA cannot transpose, so they are not used.
+//  - bf16 docs (score_topk_tiles<__nv_bfloat16, *>): the same 6.55e10
+//    FLOP at the tensor cores' 989 TFLOP/s is 0.066 ms, under the 0.076 ms
+//    of doc reads; widened and summed by fmaf it took about 2.3 ms of a
+//    2.66 ms call at Q=256, k=10. Here mma.sync.m16n8k16 (bf16 in, f32
+//    sums) takes the tile's docs as M (16 M-tiles) and the warp's 8 queries
+//    as N: 16 MMAs a k-step of 16, 64 sums a lane as before. Each product
+//    is exact, so only the order of the f32 additions differs from the
+//    plain version's (integers sum exactly, bit for bit). Chunks of
+//    MMA_DEPTH = 32 are copied by cp.async.cg, 16 bytes a copy (its
+//    src-size zero-fills rows past end and depth past D; D off a multiple
+//    of 8 or a pointer off 16-byte alignment: scalar loads and a 16-byte
+//    st.shared fill the same units), into a ring of two stages of 256 doc
+//    and 32 query rows of 64 bytes: 36,864 bytes, inside the f32 staging's
+//    37,376, so tiles_smem holds for both. After cp.async.wait_group 0 and
+//    one __syncthreads a chunk, the next chunk is copied while this one is
+//    multiplied. ldmatrix.x4 loads the fragments (A: one an M-tile and
+//    k-step; B: one for a chunk's two k-steps). One of its phases reads a
+//    16-byte unit of 8 rows, which in rows of 64 bytes lie on 16 banks
+//    twice: docs sit in slots with bits 0 and 4 swapped (doc_slot) and
+//    units are XOR-swizzled by (slot / 32) % 4 (queries by (row / 2) % 4),
+//    so each phase and each quarter-warp's copies meet all 32 banks. Lane
+//    (g, t) gets M rows g and g + 8 of queries 2t and 2t + 1;
+//    quad_transpose (xor 1, then xor 2: 64 shuffles and 192 selects a
+//    lane, no sums) gives it 8 queries x 8 docs, and the row map mma_doc
+//    makes those docs 4l .. 4l + 3 and 128 on: the selections below are the
+//    f32 path's own code, and their lists do not depend on the order in
+//    which lanes offer pairs. The wide warps' queues take the stage of the
+//    tile's last chunk while the next tile's first lands in the other; the
+//    narrow queues take both stages, so that copy starts after them.
+//    Launch bound 3 blocks an SM under the narrow selection (168
+//    registers) and 2 under the wide one (247), no spills; the k-steps are
+//    a loop, since unrolled ptxas loads all 32 A fragments ahead (250
+//    registers, spills at 168). f32 asks no minimum: a bound of 1 moved its
+//    code (155 -> 159 and 181 -> 213 registers).
+//  - bf16 times at N=1M, D=128, against the fmaf product in one run
+//    (topk_variants.py --against, NVIDIA H100 80GB HBM3, 700.00 W): k=10
+//    Q=256 2.692 -> 1.279 ms (torch.topk of the matmul 2.249), Q=32 0.485
+//    -> 0.310 (0.439); k=256 Q=256 4.651 -> 2.869 (2.267), Q=32 0.801 ->
+//    0.659 (0.451). The product alone (variant "selection cut", another
+//    run) 0.557 and 0.151 ms at k=10, 1.017 and 0.200 at k=256: the
+//    selections now set the pace.
 //  - Narrow selection (k <= WIDE_K, score_topk_tiles<T, false>): after a
 //    tile's D loop each thread tests its scores against its 8 queries'
 //    k-th best and queues those that pass, one half tile (128 docs) at a
@@ -176,8 +217,8 @@
 //  - Times at N=1M, D=128, k=10 (chip_smoke.py, NVIDIA H100 80GB HBM3,
 //    700.00 W, the old pass 1 and this one timed in one run): Q=256 f32
 //    5.52 ms with the pass it replaced, 2.57-2.58 ms with this kernel
-//    (bound 0.98 ms by operations); Q=256 bf16 6.95 -> 2.67-2.69; Q=32 f32
-//    1.02 -> 0.48. 155 registers (f32), 149 (bf16), no spills: 3 blocks an
+//    (bound 0.98 ms by operations); Q=256 bf16 6.95 -> 2.67-2.69 (fmaf);
+//    Q=32 f32 1.02 -> 0.48. 155 registers (f32), no spills: 3 blocks an
 //    SM.
 //  - Wide selection (k > WIDE_K, score_topk_tiles<T, true>). What bounds
 //    it is latency, not bytes or FLOPs: about 256 k / t of a query's
@@ -203,7 +244,7 @@
 //    buffer 1), so its staging registers are free during it. Pairs are
 //    unique, so the lists are the narrow selection's bit for bit.
 //    37,376 + 256 (k + ceil(k/32)) bytes: 104,960 at k=256, 2 blocks an SM.
-//    181 registers (f32), 168 (bf16), no spills.
+//    181 registers (f32), no spills.
 //  - WIDE_K = 14: between k=14 (Q=256: narrow 2.726 ms, wide 2.815) and
 //    k=16 (2.903, 2.846); at Q=32 the wide one is faster at every k (0.477
 //    against 0.485 at k=10), but it fits 2 blocks an SM against 3, which
@@ -222,6 +263,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -840,9 +883,10 @@ score_topk_stream(const T* __restrict__ docs, const T* __restrict__ queries, lon
     }
 }
 
-// One chunk of a tile in flight: its 16-byte units in registers.
+// One chunk of an f32 tile in flight: its 16-byte units in registers.
 template <typename T>
 struct Stage {
+    static_assert(sizeof(T) == 4, "bf16 docs are staged by stage_chunk");
     static constexpr int V = 16 / sizeof(T);       // values a unit
     static constexpr int G = BK / V;               // units a row of the chunk
     static constexpr int U = BN * G / THREADS1;    // doc units a thread
@@ -881,12 +925,8 @@ struct Stage {
             float x[V];
             widen_unit<T>(d[u], x);
             const int r = row(u, warp, lane), g = group(u, lane);
-            const bool rotate = V == 8 && (g & 1);
 #pragma unroll
-            for (int j = 0; j < V; ++j) {
-                const int jj = rotate ? j ^ 4 : j;
-                d_s[(g * V + jj) * BS + r] = rotate ? x[(j ^ 4) % V] : x[j];
-            }
+            for (int j = 0; j < V; ++j) d_s[(g * V + j) * BS + r] = x[j];
         }
 #pragma unroll
         for (int i = 0; i < QU; ++i) {
@@ -973,14 +1013,198 @@ __device__ __forceinline__ void warp_select(const float (&acc)[8][8], float* lis
     }
 }
 
+// score_topk_tiles with bf16 docs runs its product on the tensor cores
+// (see the note): chunks of MMA_DEPTH staged by cp.async in a ring of two,
+// mma.sync m16n8k16 with the tile's 256 docs as M and a warp's 8 queries as
+// N, then quad_transpose hands the sums to the selections in the CUDA-core
+// layout (docs 4 lane .. 4 lane + 3 and 128 on, 8 queries a lane).
+constexpr int MMA_DEPTH = 32;                        // depth of one staged chunk
+constexpr int MMA_ROW = MMA_DEPTH * 2;               // bytes a staged row: 4 units of 16
+constexpr int MMA_DOCS = BN * MMA_ROW;               // bytes of a stage's doc rows
+constexpr int MMA_STAGE = MMA_DOCS + BQ * MMA_ROW;   // bytes of a stage, its 32 query rows last
+static_assert(2 * MMA_STAGE <= 2 * STAGE * (int)sizeof(float),
+              "both stages fit the staging bytes that tiles_smem counts");
+static_assert(4 * WARP_SCRATCH * (int)sizeof(float) <= MMA_STAGE,
+              "the wide warps' queues fit in one stage");
+
+// The doc (from the tile's first) that row r of M-tile m multiplies. Lane
+// (g, t) = (lane / 4, lane % 4) gets the sums of rows g and g + 8 of every
+// M-tile, and quad_transpose leaves it rows g + 8 (t % 2) of M-tiles 2 jj +
+// t / 2: this map makes those docs 4 lane + jj % 4 + 128 (jj / 4), the
+// CUDA cores' layout.
+__host__ __device__ constexpr int mma_doc(int m, int r) {
+    return 128 * (m >> 3) + 16 * (r & 7) + 8 * (m & 1) + 4 * (r >> 3) + ((m >> 1) & 3);
+}
+
+// The stage slot of a doc: bits 0 and 4 swapped (its own inverse). One
+// ldmatrix phase reads 8 docs 16 apart, which in slots of their own number
+// would all be even or all odd; 64-byte slots of one parity take half the
+// banks.
+__host__ __device__ constexpr int doc_slot(int d) {
+    return (d & ~0x11) | ((d >> 4) & 1) | ((d & 1) << 4);
+}
+
+// Byte offsets in a stage of 16-byte unit u (depth 8u .. 8u + 7) of doc
+// slot s, XOR-swizzled by (s / 32) % 4, and of query row r, by (r / 2) % 4:
+// the 8 rows of each ldmatrix phase and the 8 units of each quarter-warp's
+// copy fall on all 32 banks.
+__host__ __device__ constexpr int staged_doc(int s, int u) {
+    return s * MMA_ROW + ((u ^ ((s >> 5) & 3)) << 4);
+}
+__host__ __device__ constexpr int staged_query(int r, int u) {
+    return MMA_DOCS + r * MMA_ROW + ((u ^ ((r >> 1) & 3)) << 4);
+}
+
+// A lane's A-fragment address is the one of M-tile 0 plus a constant a
+// tile: the slot bits of m and of r are apart, and the swizzle reads r's.
+constexpr bool mma_rows_apart() {
+    for (int m = 0; m < 16; ++m)
+        for (int r = 0; r < 16; ++r)
+            if (doc_slot(mma_doc(m, r)) != (doc_slot(mma_doc(m, 0)) | doc_slot(mma_doc(0, r)))
+                || (doc_slot(mma_doc(m, 0)) & doc_slot(mma_doc(0, r))) != 0
+                || (doc_slot(mma_doc(m, 0)) & 0x60) != 0)
+                return false;
+    return true;
+}
+static_assert(mma_rows_apart(), "an A-fragment address is a lane's base plus a tile's offset");
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Stage depth d0 .. d0 + MMA_DEPTH - 1 of docs t0 .. t0 + BN - 1 and of
+// queries q0 .. q0 + BQ - 1 at shared address `stage`: cp.async.cg, 16
+// bytes a copy, zeros past `end`, n_queries or dim (its src-size operand).
+// Where D or a pointer is off 16-byte alignment (!vec), load_unit's scalar
+// loads and a 16-byte shared store fill the same units. A thread's copy i
+// is unit e % 4 of slot e / 4, e = tid + 128 i; the last is a query unit.
+__device__ __forceinline__ void stage_chunk(unsigned stage, const __nv_bfloat16* docs,
+                                            const __nv_bfloat16* queries, long long t0,
+                                            long long end, int q0, int n_queries, int d0,
+                                            int dim, bool vec, int tid) {
+    constexpr int UNITS = MMA_ROW / 16;
+    constexpr int DOC_COPIES = BN * UNITS / THREADS1;
+    static_assert(BQ * UNITS == THREADS1, "one query unit a thread");
+#pragma unroll
+    for (int i = 0; i <= DOC_COPIES; ++i) {
+        const bool doc = i < DOC_COPIES;
+        const int e = doc ? tid + THREADS1 * i : tid;
+        const int s = e / UNITS, u = e % UNITS;
+        const __nv_bfloat16* src = doc ? docs : queries;
+        const long long row = doc ? t0 + doc_slot(s) : (long long)q0 + s;
+        const long long rows = doc ? end : (long long)n_queries;
+        const int col = d0 + 8 * u;
+        const unsigned dst = stage + (doc ? staged_doc(s, u) : staged_query(s, u));
+        if (vec) {
+            const bool live = row < rows && col < dim;
+            const __nv_bfloat16* from = live ? src + row * dim + col : src;
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                         :: "r"(dst), "l"(from), "r"(live ? 16 : 0) : "memory");
+        } else {
+            const uint4 x = load_unit(src, row, rows, col, dim, false);
+            asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                         :: "r"(dst), "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w) : "memory");
+        }
+    }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned address) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(address) : "memory");
+}
+
+// c += a b: a 16 x 16 bf16 (rows: docs), b 16 x 8 bf16 (columns: queries),
+// c 16 x 8 f32; each product is exact and summed in f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One staged chunk's product for warp w: its 8 queries (B, N = 8: query
+// rows 8w .. 8w + 7, one ldmatrix.x4 for both k-steps) against the tile's
+// docs (A, 16 M-tiles, one ldmatrix.x4 each a k-step; lanes 0-15 give the
+// addresses of rows 0-15 at depth 16 ks, lanes 16-31 at 16 ks + 8). c[m]
+// is M-tile m's C fragment: lane (g, t) holds rows g (c0, c1) and g + 8
+// (c2, c3) of queries 2t and 2t + 1.
+__device__ __forceinline__ void mma_chunk(float (&c)[16][4], unsigned stage, int warp,
+                                          int lane) {
+    unsigned b[4];
+    ldmatrix_x4(b, stage + staged_query(8 * warp + (lane & 7), lane >> 3));
+    // k-steps in a loop: unrolled, ptxas loads all 32 A fragments ahead
+    // (128 registers beside the 64 sums) and spills
+#pragma unroll 1
+    for (int ks = 0; ks < 2; ++ks) {
+        const unsigned b0 = ks ? b[2] : b[0], b1 = ks ? b[3] : b[1];
+        const unsigned at = stage + staged_doc(doc_slot(mma_doc(0, lane & 15)),
+                                               2 * ks + (lane >> 4));
+#pragma unroll
+        for (int m = 0; m < 16; ++m) {
+            unsigned a[4];
+            ldmatrix_x4(a, at + doc_slot(mma_doc(m, 0)) * MMA_ROW);
+            mma_bf16(c[m], a, b0, b1);
+        }
+    }
+}
+
+// The C fragments to the selections' layout: acc[i][jj] = query 8 warp +
+// i, doc 4 lane + jj % 4 + 128 (jj / 4). A quad holds the same 32 docs,
+// each lane 2 of its 8 queries. Two exchanges, with lane ^ 1 and then
+// lane ^ 2: a lane keeps the rows g + 8 (t % 2), then the M-tiles of parity
+// t / 2, sends its partner the others and takes the partner's queries of
+// what it keeps. 64 shuffles and 192 selects a lane; nothing is summed.
+__device__ __forceinline__ void quad_transpose(const float (&c)[16][4], float (&acc)[8][8],
+                                               int lane) {
+    const bool odd = lane & 1, high = lane & 2;
+    float w[4][16];  // queries 4 (t / 2) + q of rows g + 8 (t % 2), by M-tile
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int m = 0; m < 16; ++m) {
+            const float got = __shfl_xor_sync(FULL, odd ? c[m][p] : c[m][2 + p], 1);
+            w[p][m] = odd ? got : c[m][p];
+            w[2 + p][m] = odd ? c[m][2 + p] : got;
+        }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const float got = __shfl_xor_sync(FULL, high ? w[q][2 * j] : w[q][2 * j + 1], 2);
+            acc[q][j] = high ? got : w[q][2 * j];
+            acc[4 + q][j] = high ? w[q][2 * j + 1] : got;
+        }
+}
+
+// The Q >= 5 kernel's least blocks an SM: bf16 docs 3 under the narrow
+// selection (168 registers) and 2 under the wide one. f32 docs ask for
+// none (0): a bound of 1 block, though it caps nothing, moves ptxas's
+// registers and schedule (155 -> 159 and 181 -> 213 registers).
+template <typename T, bool WIDE>
+constexpr int tiles_min_blocks() {
+    return sizeof(T) == 2 ? (WIDE ? 2 : 3) : 0;
+}
+
 // WIDE (k > WIDE_K): each warp selects for its own 8 queries with
 // __syncwarp alone (warp_select); else one thread a query insertion-sorts
-// a queue of each half tile (see the note).
+// a queue of each half tile (see the note). f32 docs are summed on the CUDA
+// cores (Stage, fmaf), bf16 docs on the tensor cores (MMA: stage_chunk,
+// mma_chunk, quad_transpose); the selections read both alike.
 template <typename T, bool WIDE>
-__global__ void __launch_bounds__(THREADS1)
+__global__ void __launch_bounds__(THREADS1, tiles_min_blocks<T, WIDE>())
 score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long long n,
                  int n_queries, int dim, int k, long long n_docs, long long split_len,
                  int vec, float* __restrict__ cand_v, int* __restrict__ cand_i) {
+    constexpr bool MMA = sizeof(T) == 2;
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);      // [2][STAGE] staging
     // narrow selection
@@ -1004,7 +1228,7 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
     const int split = blockIdx.y;
     const long long begin = (long long)split * split_len;
     const long long end = min(begin + split_len, n);
-    const int n_chunks = (dim + BK - 1) / BK;
+    const int n_chunks = MMA ? (dim + MMA_DEPTH - 1) / MMA_DEPTH : (dim + BK - 1) / BK;
 
     if constexpr (WIDE) {
         for (int e = lane; e < 8 * ls; e += 32) {
@@ -1015,10 +1239,17 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
         queue_n[tid] = 0;
         filled[tid] = 0;
     }
-    Stage<T> st;
-    st.load(docs, queries, begin, end, q0, n_queries, 0, dim, vec, warp, lane);
-    st.store(smem, warp, lane);
-    __syncthreads();
+    std::conditional_t<MMA, char, Stage<T>> st;
+    const unsigned stages = shared_address(smem);  // MMA: two stages of MMA_STAGE bytes
+    int mma_buf = 0;                               // MMA: the stage of the chunk in flight
+    if constexpr (MMA) {
+        stage_chunk(stages, docs, queries, begin, end, q0, n_queries, 0, dim, vec, tid);
+        cp_async_commit();
+    } else {
+        st.load(docs, queries, begin, end, q0, n_queries, 0, dim, vec, warp, lane);
+        st.store(smem, warp, lane);
+        __syncthreads();
+    }
 
     for (long long t0 = begin; t0 < end; t0 += BN) {
         float acc[8][8];
@@ -1027,42 +1258,68 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
 #pragma unroll
             for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-        int buf = 0;
-        for (int c = 0; c < n_chunks; ++c) {
-            // the next chunk, of this tile or the next one, into registers
-            const bool more = c + 1 < n_chunks;
-            if (more)
-                st.load(docs, queries, t0, end, q0, n_queries, (c + 1) * BK, dim, vec, warp, lane);
-            else if (t0 + BN < end)
-                st.load(docs, queries, t0 + BN, end, q0, n_queries, 0, dim, vec, warp, lane);
-
-            const float* q_s = smem + buf * STAGE;
-            const float* d_s = q_s + BK * BQ;
-#pragma unroll
-            for (int kk = 0; kk < BK; ++kk) {
-                const float4 a0 = *reinterpret_cast<const float4*>(q_s + kk * BQ + 8 * warp);
-                const float4 a1 = *reinterpret_cast<const float4*>(q_s + kk * BQ + 8 * warp + 4);
-                const float4 b0 = *reinterpret_cast<const float4*>(d_s + kk * BS + 4 * lane);
-                const float4 b1 = *reinterpret_cast<const float4*>(d_s + kk * BS + HALF + 4 * lane);
-                const float qv[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-                const float dv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], dv[j], acc[i][j]);
+        if constexpr (MMA) {
+            float c[16][4] = {};
+            for (int ch = 0; ch < n_chunks; ++ch) {
+                cp_async_wait_all();
+                __syncthreads();  // chunk ch is in stage mma_buf; no warp reads the other
+                const unsigned other = stages + (mma_buf ^ 1) * MMA_STAGE;
+                if (ch + 1 < n_chunks)
+                    stage_chunk(other, docs, queries, t0, end, q0, n_queries,
+                                (ch + 1) * MMA_DEPTH, dim, vec, tid);
+                else if (WIDE && t0 + BN < end)  // the next tile's first chunk
+                    stage_chunk(other, docs, queries, t0 + BN, end, q0, n_queries, 0, dim,
+                                vec, tid);
+                cp_async_commit();
+                mma_chunk(c, stages + mma_buf * MMA_STAGE, warp, lane);
+                mma_buf ^= 1;
             }
-            if (more) st.store(smem + (buf ^ 1) * STAGE, warp, lane);
-            __syncthreads();
-            buf ^= 1;
+            quad_transpose(c, acc, lane);
+            __syncthreads();  // every warp has read the last chunk's stage, mma_buf ^ 1
+        } else {
+            int buf = 0;
+            for (int c = 0; c < n_chunks; ++c) {
+                // the next chunk, of this tile or the next one, into registers
+                const bool more = c + 1 < n_chunks;
+                if (more)
+                    st.load(docs, queries, t0, end, q0, n_queries, (c + 1) * BK, dim, vec, warp,
+                            lane);
+                else if (t0 + BN < end)
+                    st.load(docs, queries, t0 + BN, end, q0, n_queries, 0, dim, vec, warp, lane);
+
+                const float* q_s = smem + buf * STAGE;
+                const float* d_s = q_s + BK * BQ;
+#pragma unroll
+                for (int kk = 0; kk < BK; ++kk) {
+                    const float4 a0 = *reinterpret_cast<const float4*>(q_s + kk * BQ + 8 * warp);
+                    const float4 a1 =
+                        *reinterpret_cast<const float4*>(q_s + kk * BQ + 8 * warp + 4);
+                    const float4 b0 = *reinterpret_cast<const float4*>(d_s + kk * BS + 4 * lane);
+                    const float4 b1 =
+                        *reinterpret_cast<const float4*>(d_s + kk * BS + HALF + 4 * lane);
+                    const float qv[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+                    const float dv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                    for (int i = 0; i < 8; ++i)
+#pragma unroll
+                        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], dv[j], acc[i][j]);
+                }
+                if (more) st.store(smem + (buf ^ 1) * STAGE, warp, lane);
+                __syncthreads();
+                buf ^= 1;
+            }
         }
 
         if constexpr (WIDE) {
             // buffer 0 is free now and the selection uses buffer 1 alone, so
             // the next tile's first chunk goes there first: its registers are
-            // free during the selection
-            if (t0 + BN < end) st.store(smem, warp, lane);
+            // free during the selection. MMA: the queues take the last
+            // chunk's stage while the next tile's first lands in the other
+            if constexpr (!MMA)
+                if (t0 + BN < end) st.store(smem, warp, lane);
             warp_select(acc, list_v + 8 * warp * ls, list_i + 8 * warp * ls, ls, k,
-                        smem + STAGE + warp * WARP_SCRATCH, t0, end, n_docs,
+                        MMA ? smem + (mma_buf ^ 1) * (MMA_STAGE / 4) + warp * WARP_SCRATCH
+                            : smem + STAGE + warp * WARP_SCRATCH, t0, end, n_docs,
                         min(8, n_queries - q0 - 8 * warp), lane);
             if (t0 + BN < end) __syncthreads();
             continue;
@@ -1117,10 +1374,17 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
             __syncthreads();
         }
 
-        // the next tile's first chunk, loaded before the selection
+        // the next tile's first chunk, loaded before the selection (MMA:
+        // copied now, since the queues took both stages)
         if (t0 + BN < end) {
-            st.store(smem, warp, lane);
-            __syncthreads();
+            if constexpr (MMA) {
+                stage_chunk(stages + mma_buf * MMA_STAGE, docs, queries, t0 + BN, end, q0,
+                            n_queries, 0, dim, vec, tid);
+                cp_async_commit();
+            } else {
+                st.store(smem, warp, lane);
+                __syncthreads();
+            }
         }
     }
 
@@ -1454,7 +1718,8 @@ extern "C" {
 // (float32, or bfloat16 when docs_bf16 != 0); cand_v/cand_i are
 // (n_queries, n_splits, k) scratch; out_v/out_i are (n_queries, k).
 // rows_per_thread picks pass 1: 1 (score_topk_stream, 1 <= n_queries <= 4,
-// one block a split) or 8 (score_topk_tiles, 32 queries a block).
+// one block a split) or 8 (score_topk_tiles, 32 queries a block; bf16 docs
+// on the tensor cores).
 // merge_group is pass 2's group of lists (merge_plan); 0 runs pass 1 alone
 // and leaves its lists in cand_v/cand_i, out_v/out_i untouched.
 // Returns the cudaError_t of the launches (0 on success).

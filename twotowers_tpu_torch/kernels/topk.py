@@ -40,6 +40,8 @@ STREAM_WIDE_K = 10  # score_topk.cu:STREAM_WIDE_K: at Q <= 4, k above it batches
 STREAM_QUEUE = 64   # score_topk.cu:STREAM_QUEUE: survivors a wide Q <= 4 warp queues a query
 STREAM_WARPS = 8    # score_topk.cu:STREAM_WARPS, warps of a Q <= 4 block
 STAGING_BYTES = 37_376  # score_topk.cu: 2 * STAGE floats of the Q >= 5 pass 1
+MMA_DEPTH = 32      # score_topk.cu:MMA_DEPTH: depth of a bf16 Q >= 5 stage (256 doc
+                    # and 32 query rows of 64 bytes, two stages within STAGING_BYTES)
 
 MERGE_SMEM_BUDGET = 110 * 1024  # shared bytes of a pass-2 block, at most: 2 blocks an SM
 NO_INDEX = 2**31 - 1  # the index of a padding pair, beside the value -inf
@@ -77,8 +79,9 @@ def plan(n_queries: int, n: int, sm_count: int,
 
 
 def tiles_smem(k: int) -> int:
-    """Shared bytes of a Q >= 5 pass-1 block at this ``k``
-    (``score_topk.cu:tiles_smem``): the staging buffers, then the lists of
+    """Shared bytes of a Q >= 5 pass-1 block at this ``k``, for f32 and
+    bf16 docs alike (``score_topk.cu:tiles_smem``): the staging buffers
+    (the bf16 kernel's two cp.async stages fit in them), then the lists of
     the instantiation that k takes. Above ``WIDE_K`` the wide selection's
     32 lists of values and indices, each with a padding word after every 32
     pairs; else the narrow one's lists and two counts a query."""
@@ -333,6 +336,35 @@ def candidates_reference(
         cand_v[:, s, :real] = v
         cand_i[:, s, :real] = i + begin
     return cand_v, cand_i
+
+
+def agree(docs: torch.Tensor, queries: torch.Tensor, got, want,
+          n_docs: Optional[int] = None, rel: float = 1e-5) -> Tuple[float, int]:
+    """Hold a top-k (scores, indices) against another's, say the plain
+    version's. Scores within rtol 1e-5, atol 1e-6. Indices equal, except
+    where the two candidates' scores, recomputed in f64 from the queries
+    cast to the docs' dtype, differ by less than ``rel`` relative: the two
+    sum in other orders, and near-ties at the k-th place of 1M docs happen.
+    Returns (max_abs_err, near-tie swaps). Used by the tests and the checks
+    only."""
+    gv, gi = got
+    wv, wi = want
+    torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-6)
+    differ = gi != wi
+    if differ.any():
+        q_idx, pos = differ.nonzero(as_tuple=True)
+        q64 = queries.to(docs.dtype).double()[q_idx]
+
+        def rescore(idx):
+            idx = idx[q_idx, pos].long()
+            s = (q64 * docs[idx].double()).sum(1)
+            return s if n_docs is None else torch.where(idx < n_docs, s, -1e30)
+
+        sg, sw = rescore(gi), rescore(wi)
+        near = (sg - sw).abs() <= rel * torch.maximum(sg.abs(), sw.abs())
+        if not bool(near.all()):
+            raise AssertionError(f"{int((~near).sum())} indices differ beyond a near-tie")
+    return float((gv - wv).abs().max()), int(differ.sum())
 
 
 def _check_candidates(cand_v: torch.Tensor, cand_i: torch.Tensor) -> None:

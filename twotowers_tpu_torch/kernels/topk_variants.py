@@ -30,11 +30,17 @@ and 256; the last two null for a source that does not report them), the
 inserts a warp makes a query (variants with a count of them) and the
 device ms by kernel (``torch.profiler``: pass 1 and each level of pass 2)
 at every shape for the shipped kernel and "against" (before the timing,
-a line holds their outputs bit-equal at every shape, and the run fails
-where they are not); then the opcode counts of the shipped f32 passes 1
-(``cuobjdump -sass``) and the SM clock and power that ``nvidia-smi``
-samples while the shipped kernel runs Q=256 f32 and Q=1 f32 for a few
-seconds each; last the card's name and power limit.
+a line holds their outputs bit-equal at every shape but bf16 at Q >= 5,
+where the tensor cores sum in another order than a parent on the CUDA
+cores, and ``topk.agree``'s rule holds them; the run fails where they
+are not held; a second line says which kernels compiled to the very
+SASS instructions of "against"); then the opcode counts of the shipped
+passes 1, f32 and bf16 (``cuobjdump -sass``; the run fails unless the
+bf16 Q >= 5 pass holds ``HMMA`` and fewer FFMA than HMMA) and the SM
+clock and power that ``nvidia-smi`` samples while the shipped kernel
+runs Q=256 f32 and Q=1 f32 for a few seconds each; last the card's name
+and power limit. The variant "selection cut" times the Q >= 5 pass's
+product alone, bf16 on the tensor cores and f32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -108,7 +114,8 @@ VARIANTS = {
     "two waves of splits": ([], two_waves),
     "BK=32": ([("constexpr int BK = 16;", "constexpr int BK = 32;")], topk.plan),
     "BS=BN+8": ([("constexpr int BS = BN + 4;", "constexpr int BS = BN + 8;")], topk.plan),
-    "launch bound 4 blocks": ([("__launch_bounds__(THREADS1)\nscore_topk_tiles(",
+    "launch bound 4 blocks": ([("__launch_bounds__(THREADS1, tiles_min_blocks<T, WIDE>())\n"
+                                "score_topk_tiles(",
                                 "__launch_bounds__(THREADS1, 4)\nscore_topk_tiles(")], topk.plan),
     "stream ROWS=4": ([("constexpr int ROWS = 8;", "constexpr int ROWS = 4;")], topk.plan),
     "stream 4 warps": ([("constexpr int STREAM_WARPS = 8;", "constexpr int STREAM_WARPS = 4;")],
@@ -167,9 +174,24 @@ VARIANTS = {
     "stream narrow selection and end merge cut": ([STREAM_NARROW, SELECTION_CUT, END_MERGE_CUT],
                                                   topk.plan),
     "stream narrow inserts counted": ([STREAM_NARROW, *INSERTS_COUNTED], topk.plan),
+    # the Q >= 5 pass's product alone, bf16 on the tensor cores and f32 on the
+    # CUDA cores: no score passes 1e30, so the narrow selection is one
+    # block-wide vote a tile and the wide one keeps only its votes; every
+    # sum is still read, so none is left out
+    "selection cut": ([
+        ("#pragma unroll\n        for (int h = 0; h < 2; ++h) {",
+         "bool cut = false;\n#pragma unroll\n        for (int i = 0; i < 8; ++i)\n"
+         "#pragma unroll\n            for (int j = 0; j < 8; ++j) cut |= acc[i][j] > 1.0e30f;\n"
+         "#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n"
+         "            if (!__syncthreads_or(cut)) break;"),
+        ("if (doc < end && ranks_before(s, (int)doc, kth_v, kth_i)) mine |= 1u << jj;",
+         "if (s > 1.0e30f && doc < end && ranks_before(s, (int)doc, kth_v, kth_i))\n"
+         "                mine |= 1u << jj;"),
+    ], topk.plan),
 }
 # variants whose output is not the function's: timed, never checked
-CUT = {"stream narrow selection cut", "stream narrow selection and end merge cut"}
+CUT = {"stream narrow selection cut", "stream narrow selection and end merge cut",
+       "selection cut"}
 AGAINST = "against"
 
 
@@ -206,21 +228,36 @@ def compile_variants(against=None) -> dict:
     return libs
 
 
-def sass_opcodes(lib: Path, kernel: str) -> dict:
-    """Opcode counts of the kernel whose mangled name holds ``kernel`` in
-    ``lib``'s SASS."""
+def sass_kernels(lib: Path) -> dict:
+    """Each kernel's SASS instructions in ``lib`` (``cuobjdump -sass``;
+    addresses and encodings left out), by its mangled name from
+    ``score_topk_`` on, which two builds of the source share."""
     nvcc = Path(build.find_nvcc())
     sass = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    counts, inside = collections.Counter(), False
+    kernels, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside:
-            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            m = re.search(r"score_topk_\w+", line)
+            current = kernels.setdefault(m.group(0), []) if m else None
+        elif current is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
             if m:
-                counts[m.group(1)] += 1
-    return dict(counts.most_common(24))
+                current.append(m.group(1))
+    return kernels
+
+
+def sass_opcodes(kernels: dict, kernel: str) -> dict:
+    """Opcode counts (every opcode, most common first) of the kernels of
+    ``sass_kernels`` whose name holds ``kernel``."""
+    counts = collections.Counter()
+    for name, instructions in kernels.items():
+        if kernel in name:
+            for ins in instructions:
+                m = re.match(r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ins)
+                if m:
+                    counts[m.group(1)] += 1
+    return dict(counts.most_common())
 
 
 def clocks_while(fn, seconds: float = 4.0) -> dict:
@@ -373,17 +410,26 @@ def main() -> int:
     inputs = {dtype: docs.to(dtype) for dtype in (torch.float32, torch.bfloat16)}
     queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in (1, 4, 32, 256)}
     label = lambda q, dtype, k: f"q{q} {dtype} k{k}"  # noqa: E731
-    if AGAINST in runs:  # the shipped kernel's output is "against"'s, bit for bit
-        same = {}
+    if AGAINST in runs:  # the shipped kernel's output is "against"'s
+        same, held = {}, {}
         for q, dtype, k in shapes:
             d, qs = inputs[dtype], queries[q].to(dtype)
             got, want = runs["shipped"][0](d, qs, k), runs[AGAINST][0](d, qs, k)
+            if dtype == torch.bfloat16 and q > 4:  # the tensor cores' summation order
+                err, swaps = topk.agree(d, qs, got, want)
+                held[label(q, dtype, k)] = {"max_abs_err": err, "near_tie_swaps": swaps}
+                continue
             same[label(q, dtype, k)] = (torch.equal(got[0].view(torch.int32),
                                                     want[0].view(torch.int32))
                                         and torch.equal(got[1], want[1]))
-        print(json.dumps({"bit_equal_to_against": same}), flush=True)
+        print(json.dumps({"bit_equal_to_against": same, "agree_with_against": held}),
+              flush=True)
         if not all(same.values()):
             raise AssertionError(f"the shipped kernel's output is not {AGAINST!r}'s: {same}")
+        # which kernels compiled to the very same instructions
+        ours, theirs = sass_kernels(libs["shipped"][2]), sass_kernels(libs[AGAINST][2])
+        print(json.dumps({"sass_equal_to_against": {
+            name: ours[name] == theirs.get(name) for name in sorted(ours)}}), flush=True)
     order = list(runs) + list(runs)[::-1]
     times = {name: {label(*shape): [] for shape in shapes} for name in runs}
     for name in order:
@@ -410,10 +456,17 @@ def main() -> int:
                     run.lib.score_topk_stream_inserts() / (n_splits * 8 * q))
         print(json.dumps({"variant": name, "ms": ms, "turns": times[name], "cut": name in CUT,
                           **info}), flush=True)
-    for kernel in ("score_topk_tilesIfLb0", "score_topk_tilesIfLb1", "score_topk_streamIfLi1ELb0",
-                   "score_topk_streamIfLi1ELb1"):
-        print(json.dumps({f"sass_opcodes shipped {kernel}":
-                          sass_opcodes(libs["shipped"][2], kernel)}), flush=True)
+    shipped_sass = sass_kernels(libs["shipped"][2])
+    for kernel in ("score_topk_tilesIfLb0", "score_topk_tilesIfLb1",
+                   "score_topk_tilesI13__nv_bfloat16Lb0", "score_topk_tilesI13__nv_bfloat16Lb1",
+                   "score_topk_streamIfLi1ELb0", "score_topk_streamIfLi1ELb1"):
+        ops = sass_opcodes(shipped_sass, kernel)
+        print(json.dumps({f"sass_opcodes shipped {kernel}": ops}), flush=True)
+        if "tilesI13__nv_bfloat16" in kernel:  # the tensor cores: HMMA, no f32 FMA loop
+            hmma = sum(n for op, n in ops.items() if op.startswith("HMMA"))
+            ffma = sum(n for op, n in ops.items() if op.startswith("FFMA"))
+            if hmma == 0 or ffma >= hmma:
+                raise AssertionError(f"{kernel}: {hmma} HMMA, {ffma} FFMA")
     for q in (256, 1):
         d, qs = inputs[torch.float32], queries[q]
         print(json.dumps({f"clocks shipped q{q} f32":
