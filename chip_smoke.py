@@ -21,7 +21,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               float inputs at Q=257, D=1024, k=10 and 256), then pass 1
               alone (``score_topk_candidates``)
               at Q=32, k=256 bit-equal to the plain per-split top-k
-              (``candidates_reference``) on integer-valued inputs, then
+              (``candidates_reference``) on integer-valued inputs, and
+              barred by a sample run's k-th pairs (the Q >= 5 wide
+              selection's bar) at Q=32 and 257, k=256, f32 and bf16 on
+              integer-valued, all-tied and signed-zero docs, with the
+              sample run's sums held bit-equal to the main run's on float
+              docs (``sample_pairs_in_main``), then
               pass 2 alone (``merge_topk_cuda``, its blocks per level)
               bit-equal to the plain merge on the real pass-1 lists of Q=1,
               k=256 (f32, bf16) and on crafted lists at S = 1, 33, 1024,
@@ -260,6 +265,26 @@ def crafted_lists(q, s, k, kind, gen):
     return sv.view(q, s, k).contiguous(), si.view(q, s, k).contiguous()
 
 
+def sample_pairs_in_main(sample_v, sample_i, cand_v, cand_i, split_len: int) -> int:
+    """Hold a sample run's sums against the main run's: each of the sample
+    run's (Q, k) top pairs that the pass-1 list of the main run's split
+    holding its doc holds too has the very same bits there. Raises if one
+    differs or none is held; returns how many pairs were held."""
+    q, _, k = cand_v.shape
+    idx = sample_i.long()
+    split = idx // split_len
+    at = torch.arange(q, device=idx.device)[:, None]
+    lists_i, lists_v = cand_i[at, split], cand_v[at, split]  # (Q, k, k)
+    match = lists_i == sample_i[..., None]
+    held = match.any(-1)
+    got = lists_v.gather(-1, match.int().argmax(-1, keepdim=True)).squeeze(-1)
+    same = got.view(torch.int32) == sample_v.view(torch.int32)
+    if not bool(same[held].all()) or not bool(held.any()):
+        raise AssertionError(f"{int((~same[held]).sum())} of {int(held.sum())} sample pairs "
+                             "differ from the main run's sums")
+    return int(held.sum())
+
+
 def pass2_ms(by_kernel: dict) -> float:
     """Device ms of pass 2 (every level) in a ``device_ms_by_kernel`` row."""
     return sum(ms for name, ms in by_kernel.items() if "score_topk_merge" in name)
@@ -267,9 +292,9 @@ def pass2_ms(by_kernel: dict) -> float:
 
 def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     from twotowers_tpu_torch.kernels.topk import (
-        STREAM_WIDE_K, WIDE_K, candidates_reference, merge_occupancy, merge_plan,
+        NO_INDEX, STREAM_WIDE_K, WIDE_K, candidates_reference, kth, merge_occupancy, merge_plan,
         merge_topk_cuda, merge_topk_reference, plan, score_topk_candidates, score_topk_cuda,
-        stream_occupancy, stream_smem, tiles_occupancy, tiles_smem)
+        score_topk_sample, stream_occupancy, stream_smem, tiles_occupancy, tiles_smem)
     from twotowers_tpu_torch.ops.topk_score import score_topk_reference
 
     dev = torch.device("cuda")
@@ -436,6 +461,64 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
              n_splits=got[0].shape[1], split_len=split_len, bit_equal=True,
              max_abs_err=float((got[0][real] - want[0][real]).abs().max()))
 
+    # pass 1 barred (the Q >= 5 wide selection): each query's k-th pair of
+    # the call's sample run (tiles spread over the docs) bars every split,
+    # which keeps its top-k among the pairs at or before it; bit for bit the
+    # plain barred per-split top-k, on integer-valued, all-tied and
+    # signed-zero docs
+    bar_gen = torch.Generator(device=dev).manual_seed(seed + 3)  # leaves `gen` as it was
+    tied_n = 524_288
+    tied_big = torch.zeros(tied_n, 16, device=dev)
+    tied_big[:, 0] = 1.0
+    signed_big = -torch.rand(tied_n, 16, device=dev, generator=bar_gen)
+    zero_rows = torch.rand(tied_n, device=dev, generator=bar_gen) < 0.25
+    signed_big[zero_rows] = torch.where(
+        torch.rand(int(zero_rows.sum()), 16, device=dev, generator=bar_gen) < 0.5, -0.0, 0.0)
+    barred_lists = {}
+    for kind, base, qsets in (("integer", ints, (qints[:32], q257)),
+                              ("tied", tied_big, (torch.ones(32, 16, device=dev),
+                                                  torch.ones(257, 16, device=dev))),
+                              ("signed-zero", signed_big, (torch.ones(32, 16, device=dev),
+                                                           torch.ones(257, 16, device=dev)))):
+        for dtype in (torch.float32, torch.bfloat16):
+            d = base.to(dtype)
+            for qs in qsets:
+                q = qs.shape[0]
+                top = score_topk_sample(d, qs, 256)
+                if top is None:
+                    raise AssertionError(f"barred pass 1 {kind} q{q}: the call takes no bar")
+                bar = kth(top, 256)
+                got = score_topk_candidates(d, qs, 256, bar=bar)
+                split_len = plan(q, d.shape[0], sm_count,
+                                 tiles_occupancy(dev, dtype, 256)["blocks_per_sm"])[2]
+                want = candidates_reference(d, qs, 256, split_len, bar=bar)
+                if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"barred pass 1 {kind} q{q} k256 {dtype}: not the "
+                                         "plain barred per-split top-k")
+                real = int((got[1] != NO_INDEX).sum())
+                case = f"barred pass-1 lists {kind} q{q} k256 {str(dtype)[6:]}"
+                barred_lists[case] = {"n": d.shape[0], "n_splits": got[0].shape[1],
+                                      "real_pairs_per_list": real / (q * got[0].shape[1]),
+                                      "sample_plan": top[2]}
+                emit("kernels", case=case, **barred_lists[case], bit_equal=True)
+    del tied_big, signed_big
+    # the bar is exact only if the sample run sums each (query, doc) pair
+    # as the main run does: float docs, the sample run's top pairs that the
+    # main run's lists hold have the same bits there
+    sample_sums = {}
+    for dtype, d in ((torch.float32, docs), (torch.bfloat16, docs_bf16)):
+        for qs in (queries[32], q1024[:, :128].contiguous()):
+            q = qs.shape[0]
+            sample_v, sample_i, sample = score_topk_sample(d, qs, 256)
+            cands = score_topk_candidates(d, qs, 256)
+            split_len = plan(q, d.shape[0], sm_count,
+                             tiles_occupancy(dev, dtype, 256)["blocks_per_sm"])[2]
+            held = sample_pairs_in_main(sample_v, sample_i, *cands, split_len)
+            sample_sums[f"q{q} {str(dtype)[6:]}"] = held
+            emit("kernels", case=f"sample sums q{q} k256 {dtype}", pairs_bit_equal=held,
+                 sample_plan=sample, split_len=split_len)
+
     # pass 2 alone: the kernel's merge of the same lists as the plain
     # merge's, bit for bit; level 1 writes in place, so it gets a copy
     def merge_check(case, cand_v, cand_i, final=None):
@@ -496,6 +579,12 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
         if q == 1 or k >= 100:  # pass 1 and each level of pass 2 apart
             row["device_ms_by_kernel"] = device_ms_by_kernel(lambda: score_topk_cuda(d, qs, k))
             row["pass2_ms"] = pass2_ms(row["device_ms_by_kernel"])
+            row["pass1_ms"] = sum(ms for name, ms in row["device_ms_by_kernel"].items()
+                                  if "score_topk_tiles" in name or "score_topk_stream" in name)
+            # pass1_ms and pass2_ms hold its sample runs' too
+            top = score_topk_sample(d, qs, k)
+            row["sample_plan"] = top and top[2]
+            row["sample_ms"] = cuda_ms(lambda: score_topk_sample(d, qs, k)) if top else 0.0
         timings[(q, dtype, k)] = row
         emit("kernels", case=f"time q{q} {dtype} k{k}", n=n_docs, d=128, k=k, **row,
              card=card["nvidia_smi"])
@@ -512,6 +601,7 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                                                   (32, torch.bfloat16, 256),
                                                   (256, torch.bfloat16, 256),
                                                   (32, torch.float32, 100))},
+            "barred_lists": barred_lists, "sample_sums": sample_sums,
             "batch_bf16": {f"q{q} k{k}": timings[(q, torch.bfloat16, k)]
                            for q in (32, 256) for k in (10, 256)},
             "tiles_blocks": tiles_blocks, "stream_blocks": stream_blocks,
@@ -2467,11 +2557,15 @@ def main() -> int:
             "shape": {"n": args.n_docs, "d": 128, "q": 1, "k": 256,
                       "q4": {"q": 4, "k": 256}, "k100": {"q": 1, "k": 100}}},
         "large_k_batch": {**{name: {key: row[key] for key in (
-            "ms", "pass2_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "ms", "pass1_ms", "pass2_ms", "sample_ms", "sample_plan", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
             for name, row in topk_row["batch_large_k"].items()},
             "pass1_blocks": topk_row["tiles_blocks"],
             "pass1_check": "score_topk_candidates bit-equal to candidates_reference at Q=32, "
-                           "k=256 (integer-valued, f32 and bf16)",
+                           "k=256 (integer-valued, f32 and bf16); barred by a sample run's "
+                           "k-th pairs at Q=32 and 257 on integer, tied and signed-zero docs",
+            "barred_lists": topk_row["barred_lists"],
+            "sample_sums_bit_equal": topk_row["sample_sums"],
             "shape": {"n": args.n_docs, "d": 128}},
         "batch_bf16_tensor_cores": {**{name: {key: row[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -244,3 +244,94 @@ def test_merge_of_chunk_topks_is_the_topk(kind, s, k):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(jax_i))
     if kind == "tied":  # every score ties: the first k docs, in order
         np.testing.assert_array_equal(got_i.numpy(), np.tile(np.arange(k), (3, 1)))
+
+
+# a bar rule that samples at this test's size: about 1,024 docs, then 512
+BAR_RULE = {"max_docs": 1024, "min_docs": 512, "min_ratio": 2, "min_tiles": 1}
+
+
+def barred_composition(docs, queries, k, split_len, n_docs):
+    """The plain version of a barred call, through the wrapper's own
+    ``sample_topk``: each run is the plain per-split top-k among the pairs
+    at or before its bar (``candidates_reference``), then the plain merge.
+    The sample runs (tiles spread over the docs, barred in turn) give each
+    query's k-th pair as the bar of the run over every split. Returns the
+    result, the bar and the sample plans."""
+    def launch(n_splits, s_len, s_docs, bar):
+        cands = topk.candidates_reference(docs, queries, k, s_len, n_docs, bar=bar,
+                                          split_docs=s_docs)
+        assert cands[0].shape[1] == n_splits
+        plans.append((s_len, s_docs))
+        return topk.merge_topk_reference(*cands)
+
+    plans = []
+    n = docs.shape[0]
+    n_splits = -(-n // split_len)
+    top = topk.sample_topk(launch, queries.shape[0], k, n, n_splits, split_len, split_len,
+                           **BAR_RULE)
+    bar = topk.kth(top, k)
+    return launch(n_splits, split_len, split_len, bar), bar, plans
+
+
+def _bar_case(kind, rng, n, dim, q):
+    """Inputs whose f32 sums are exact in any order (so a chunk's scores
+    are the whole matrix's): multiples of 1/256 in [-1, 1], integers in
+    [-2, 2], one tied column, or one column of -0.0, +0.0 (12 rows) and -1
+    against ones."""
+    if kind == "tied":
+        docs = np.zeros((n, dim), np.float32)
+        docs[:, 0] = 1.0
+        return docs, np.abs(rng.integers(-2, 3, size=(q, dim))).astype(np.float32) + 1
+    if kind == "signed-zero":  # one column: a -0.0 doc scores -0.0
+        docs = -np.ones((n, 1), np.float32)
+        docs[rng.choice(n, 10, replace=False)] = 0.0
+        docs[(docs == 0) & (rng.random((n, 1)) < 0.5)] = -0.0
+        docs[[3, 5]] = [[-0.0], [0.0]]
+        return docs, np.ones((q, 1), np.float32)
+    scale, top = (256.0, 256) if kind == "random" else (1.0, 2)
+    docs = (rng.integers(-top, top + 1, size=(n, dim)) / scale).astype(np.float32)
+    return docs, (rng.integers(-top, top + 1, size=(q, dim)) / scale).astype(np.float32)
+
+
+BAR_COMPOSITION_CASES = [
+    ("random", 20, None), ("random", 64, None), ("integer", 20, None), ("integer", 64, 700),
+    ("tied", 64, None), ("signed-zero", 20, None), ("random", 64, 600), ("integer", 64, 40)]
+
+
+@pytest.mark.parametrize("kind,k,n_docs", BAR_COMPOSITION_CASES)
+@pytest.mark.parametrize("split_len", [512, 768])
+def test_barred_composition_is_the_topk(kind, k, n_docs, split_len):
+    """A barred call's plain version (a sample run's k-th pair bars pass 1,
+    the sample run barred in turn by a smaller one, then the plain merge)
+    gives the plain version's result bit for bit and the JAX package's
+    ``score_topk`` exactly: k docs of the sample rank at or before the
+    bar, so no doc after it is in the top-k. n_docs = 40 < k = 64 makes
+    the sample's k-th pair a masked row (-1e30). The JAX package's XLA
+    top-k ranks +0.0 before -0.0 where the port ties them by index, so
+    signed zeros (all among the top-k here) are held against it by value
+    and by the set of indices."""
+    rng = np.random.default_rng(k * 7 + split_len + len(kind))
+    n = 4000
+    docs, queries = _bar_case(kind, rng, n, 16, 6)
+    td, tq = torch.from_numpy(docs), torch.from_numpy(queries)
+    (got_v, got_i), bar, plans = barred_composition(td, tq, k, split_len, n_docs)
+    # the innermost sample, the sample, then every split: first tiles only
+    assert len(plans) == 3 and plans[-1] == (split_len, split_len)
+    assert plans[1][1] == plans[0][1] == topk.BATCH_TILE_N < split_len
+    want_v, want_i = score_topk_reference(td, tq, k, n_docs)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+    jax_v, jax_i = jax_score_topk(jnp.asarray(docs), jnp.asarray(queries), k, n_docs)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(jax_v))
+    if kind == "signed-zero":
+        assert bool(torch.signbit(got_v[got_v == 0]).any())
+        assert bool((got_v[:, -1] < 0).all())  # every zero is in the top-k
+        for row in range(6):
+            assert set(got_i[row].tolist()) == set(np.asarray(jax_i)[row].tolist())
+    else:
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(jax_i))
+    if n_docs is not None and n_docs < k:  # the bar is a masked row's pair
+        assert bool((bar[0] == np.float32(-1e30)).all()) and bool((bar[1] >= n_docs).all())
+    if kind == "tied":  # the bar is doc k-1: the first k docs, in order
+        assert bool((bar[1] == k - 1).all())
+        np.testing.assert_array_equal(got_i.numpy(), np.tile(np.arange(k), (6, 1)))

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import crafted_lists
+from chip_smoke import crafted_lists, sample_pairs_in_main
 from twotowers_tpu_torch.kernels import topk
 from twotowers_tpu_torch.ops.topk_score import score_topk, score_topk_reference
 
@@ -146,15 +146,16 @@ def test_plan_of_a_single_search_makes_one_wave_of_splits(q, n, blocks):
         assert n_splits >= 0.97 * wave
 
 
-@pytest.mark.parametrize("k,nbytes", [(1, 37_888), (10, 40_192), (14, 41_216), (15, 41_472),
-                                      (32, 45_824), (100, 64_000), (256, 104_960)])
+@pytest.mark.parametrize("k,nbytes", [(1, 37_888), (10, 40_192), (14, 41_216), (15, 50_304),
+                                      (32, 54_656), (100, 72_832), (256, 113_792)])
 def test_tiles_smem_counts_the_lists_of_the_selection_k_takes(k, nbytes):
     """The Q >= 5 pass's shared bytes (score_topk.cu's tiles_smem): the
     two staging buffers (37,376), then up to k = WIDE_K the narrow
     selection's 32 lists of k values and indices and two counts a query,
-    above it the wide selection's 32 lists of values and indices with a
-    padding word after every 32 pairs: 37,376 + 8 x 32 x (256 + 8) at
-    k=256."""
+    above it the wide selection's 32 lists of values and indices and 32
+    buffers of TILE_QUEUE, each with a padding word after every 32 pairs,
+    then a bar (value, index) and a buffer count a query: 37,376 + 8 x 32
+    x (256 + 8 + 32 + 1) + 12 x 32 at k=256."""
     assert topk.tiles_smem(k) == nbytes
     assert (k > topk.WIDE_K) == (k >= 15)
 
@@ -203,7 +204,7 @@ def test_stream_smem_fits_a_block_at_every_width(q, k):
 
 
 CONSTANTS = ["STREAM_WIDE_K", "WIDE_K", "STREAM_QUEUE", "STREAM_WARPS", "MAX_K",
-             "MAX_SPLITS", "MMA_DEPTH"]
+             "MAX_SPLITS", "MMA_DEPTH", "TILE_QUEUE"]
 
 
 @pytest.mark.parametrize("name", CONSTANTS)
@@ -321,6 +322,156 @@ def test_candidates_reference_is_each_splits_top_k(n, k, split_len, n_docs):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _pairs_at_or_before(docs, queries, k, split_len, n_docs, bar_v, bar_i):
+    """Each query's and split's top-k among the pairs that rank at or
+    before its bar pair, by Python's sort: (Q, S) lists of (value, index)."""
+    scores = (queries.double() @ docs.double().T).tolist()  # exact: small integers
+    n = docs.shape[0]
+    n_docs = n if n_docs is None else n_docs
+    out = []
+    for q, row in enumerate(scores):
+        bv, bi = float(bar_v[q]), int(bar_i[q])
+        lists = []
+        for begin in range(0, n, split_len):
+            pairs = [(row[d] if d < n_docs else float(np.float32(-1e30)), d)
+                     for d in range(begin, min(begin + split_len, n))]
+            pairs = sorted(pairs, key=lambda p: (-p[0], p[1]))
+            lists.append([p for p in pairs if p[0] > bv or (p[0] == bv and p[1] <= bi)][:k])
+        out.append(lists)
+    return out
+
+
+BAR_CANDIDATE_CASES = [(1000, 10, 256, None, 37), (1000, 100, 256, 700, 5),
+                       (1000, 256, 512, None, 0), (300, 256, 256, 260, 299), (5, 3, 2, None, 4),
+                       (1000, 20, 128, 999, 999)]
+
+
+@pytest.mark.parametrize("n,k,split_len,n_docs,bar_doc", BAR_CANDIDATE_CASES)
+def test_candidates_reference_with_a_bar_keeps_pairs_at_or_before_it(n, k, split_len, n_docs,
+                                                                      bar_doc):
+    """The plain barred pass 1: each split's top-k among the pairs that rank
+    at or before the query's bar (its score, then its index: the bar pair
+    itself is kept), best first, padded with (-inf, NO_INDEX), as Python's
+    sort of every pair gives them. The bar is doc ``bar_doc``'s own pair,
+    so ties with it go by index."""
+    rng = np.random.default_rng(n + k + bar_doc)
+    docs = torch.from_numpy(rng.integers(-2, 3, (n, 8)).astype(np.float32))
+    queries = torch.from_numpy(rng.integers(-2, 3, (6, 8)).astype(np.float32))
+    scores = queries @ docs.T
+    if n_docs is not None:
+        scores[:, n_docs:] = -1e30
+    bar_v = scores[:, bar_doc].contiguous()
+    bar_i = torch.full((6,), bar_doc, dtype=torch.int32)
+    cand_v, cand_i = topk.candidates_reference(docs, queries, k, split_len, n_docs,
+                                               bar=(bar_v, bar_i))
+    want = _pairs_at_or_before(docs, queries, k, split_len, n_docs, bar_v, bar_i)
+    n_splits = -(-n // split_len)
+    assert cand_v.shape == cand_i.shape == (6, n_splits, k)
+    for q in range(6):
+        for s in range(n_splits):
+            pairs = want[q][s]
+            assert cand_i[q, s, :len(pairs)].tolist() == [d for _, d in pairs]
+            assert cand_v[q, s, :len(pairs)].tolist() == [v for v, _ in pairs]
+            assert bool((cand_i[q, s, len(pairs):] == topk.NO_INDEX).all())
+            assert bool(torch.isneginf(cand_v[q, s, len(pairs):]).all())
+
+
+T = topk.BATCH_TILE_N
+
+
+def sample_docs(n, plan):
+    """Docs a sample plan (n_splits, split_len, split_docs) reads."""
+    if plan is None:
+        return 0
+    n_splits, split_len, split_docs = plan
+    return sum(min(split_docs, n - s * split_len) for s in range(n_splits))
+
+
+@pytest.mark.parametrize("q,k,n,n_splits,split_tiles,sample_tiles,want", [
+    (32, 256, 1_000_000, 261, 15, 15, (261, 15 * T, T)),
+    (256, 100, 1_000_000, 33, 119, 119, (33, 119 * T, 8 * T)),
+    (256, 100, 1_000_000, 33, 119, 8, (33, 119 * T, T)),
+    (5, topk.WIDE_K + 1, 524_288, 256, 8, 8, (256, 8 * T, T)),
+    (5, 256, 524_287, 256, 8, 8, (128, 16 * T, T)),
+    (256, 256, 65_536, 32, 8, 8, (32, 8 * T, T)),
+    (33, 256, 65_535, 32, 8, 8, None), (32, 256, 65_536, 256, 1, 1, None),
+    (32, 256, 1_000_000, 1024, 3, 3, None), (4, 256, 1_000_000, 261, 15, 15, None),
+    (32, topk.WIDE_K, 1_000_000, 261, 15, 15, None), (32, 10, 1_000_000, 261, 15, 15, None),
+    (5, 15, 270_336, 264, 4, 4, (132, 8 * T, T)),
+    (257, 256, 999_983, 30, 131, 131, (30, 131 * T, 9 * T))])
+def test_bar_rule_takes_wide_batches_over_many_docs(q, k, n, n_splits, split_tiles,
+                                                     sample_tiles, want):
+    """The bar applies to the Q >= 5 pass's wide selection (Q >= 5, k >
+    WIDE_K) alone, where a split reads BAR_MIN_TILES tiles or more; the
+    sample holds about the largest of BAR_DOCS, its half and so on down to
+    BAR_MIN_DOCS that the pass's docs hold BAR_MIN_RATIO times: the first
+    tiles of every split, or the first tile of every few splits. Elsewhere
+    a call is as before. A sample plan (split_docs under split_len) is
+    barred by the same rule."""
+    got = topk.bar_plan(q, k, n, n_splits, split_tiles * T, sample_tiles * T)
+    assert got == want
+    if got is not None:  # its splits are the pass's own, each at a tile's start
+        assert got[0] <= n_splits and got[1] % (split_tiles * T) == 0 and got[2] % T == 0
+        assert got[2] <= sample_tiles * T and (got[0] - 1) * got[1] < n
+    assert (topk.BAR_DOCS, topk.BAR_MIN_DOCS, topk.BAR_MIN_RATIO, topk.BAR_MIN_TILES) == (
+        65_536, 8_192, 8, 4)
+    ratio = topk.BAR_DOCS // topk.BAR_MIN_DOCS  # each halving a whole number of tiles
+    assert ratio & (ratio - 1) == 0 and topk.BAR_MIN_DOCS % topk.BATCH_TILE_N == 0
+    assert 8_192 <= topk.BAR_MIN_DOCS <= topk.BAR_DOCS <= 65_536
+    assert topk.BAR_MIN_DOCS >= topk.MAX_K
+
+
+@pytest.mark.parametrize("q,first,second", [(32, 66_816, 0), (256, 67_584, 8_448),
+                                            (5, 66_816, 0), (257, 69_120, 15_360)])
+def test_bar_rule_under_the_plan_at_one_million_docs(q, first, second):
+    """Under ``plan`` (132 SMs, 2 blocks an SM at k=256), a call over 1M
+    docs samples one tile of each of 261 splits at Q <= 32; at Q=256 eight
+    of each of 33, and that sample run, whose splits span 8 tiles, is
+    barred in turn by one tile of each; the innermost run takes none."""
+    n = 1_000_000
+    n_splits, split_len = topk.plan(q, n, 132, 2)[1:]
+    outer = topk.bar_plan(q, 256, n, n_splits, split_len, split_len)
+    assert sample_docs(n, outer) == first
+    inner = topk.bar_plan(q, 256, n, *outer)
+    assert sample_docs(n, inner) == second
+    assert inner is None or topk.bar_plan(q, 256, n, *inner) is None
+
+
+@pytest.mark.parametrize("max_docs,min_docs,min_ratio,min_tiles,n,want", [
+    (8_192, 8_192, 8, 4, 65_536, 8_192), (8_192, 8_192, 8, 4, 65_535, 0),
+    (65_536, 65_536, 4, 1, 262_144, 65_536), (65_536, 65_536, 4, 1, 262_143, 0),
+    (65_536, 8_192, 2, 4, 131_071, 32_768), (65_536, 8_192, 8, 1, 65_536, 8_192),
+    (128, 128, 1, 1, 1_000, 0)])
+def test_bar_rule_follows_its_sample_and_ratio(max_docs, min_docs, min_ratio, min_tiles, n,
+                                               want):
+    """Other sample sizes, ratios and split lengths (the variants' sweep),
+    here at splits of four tiles: none below a whole tile."""
+    n_splits = -(-n // (4 * T))
+    got = topk.bar_plan(32, 256, n, n_splits, 4 * T, 4 * T, max_docs=max_docs,
+                        min_docs=min_docs, min_ratio=min_ratio, min_tiles=min_tiles)
+    assert sample_docs(n, got) == want
+
+
+@pytest.mark.parametrize("shape,dtypes,q,k,match", [
+    (((4,), (4,)), (torch.float32, torch.int32), 4, 256, "only Q >= 5"),
+    (((5,), (5,)), (torch.float32, torch.int32), 5, 14, "only Q >= 5"),
+    (((5,), (6,)), (torch.float32, torch.int32), 5, 256, "\\(Q,\\) float32"),
+    (((5,), (5,)), (torch.float64, torch.int32), 5, 256, "\\(Q,\\) float32"),
+    (((5, 1), (5, 1)), (torch.float32, torch.int32), 5, 256, "\\(Q,\\) float32")])
+def test_bar_arguments_are_checked(shape, dtypes, q, k, match):
+    bar = (torch.zeros(shape[0], dtype=dtypes[0]), torch.zeros(shape[1], dtype=dtypes[1]))
+    with pytest.raises(ValueError, match=match):
+        topk._check_bar(bar, q, k, torch.device("cpu"))
+
+
+def test_barred_pass_one_refuses_cpu_tensors():
+    before = topk.LAUNCHES
+    bar = (torch.zeros(5), torch.zeros(5, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        topk.score_topk_candidates(torch.zeros(64, 8), torch.zeros(5, 8), 20, bar=bar)
+    assert topk.LAUNCHES == before
+
+
 MERGE_PLAN_CASES = [(s, k) for s in (1, 2, 3, 31, 32, 33, 100, 391, 521, 1023, 1024)
                     for k in (1, 10, 64, 256)]
 
@@ -430,6 +581,20 @@ def cuda():
     return torch.device("cuda")
 
 
+def _call_launches(cuda, q, k, n, dtype):
+    """Launches of a score_topk_cuda call: its own, and one for each
+    sample run that bars it (bar_plan; none at Q <= 4 or k <= WIDE_K)."""
+    if q <= 4 or k <= topk.WIDE_K:
+        return 1
+    per_sm = topk.tiles_occupancy(cuda, dtype, k)["blocks_per_sm"]
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_splits, split_len = topk.plan(q, n, sm_count, per_sm)[1:]
+    sample, launches = (n_splits, split_len, split_len), 1
+    while (sample := topk.bar_plan(q, k, n, *sample)) is not None:
+        launches += 1
+    return launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -440,7 +605,8 @@ def test_kernel_matches_plain_version(cuda, name, dtype):
     before = topk.LAUNCHES
     got_s, got_i = score_topk(docs, queries, k, n_docs)
     torch.cuda.synchronize()
-    assert topk.LAUNCHES == before + 1
+    assert topk.LAUNCHES == before + _call_launches(cuda, queries.shape[0], k, docs.shape[0],
+                                                    dtype)
     want_s, want_i = score_topk_reference(docs, queries, k, n_docs)
     torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
@@ -465,7 +631,7 @@ def test_batch_kernel_crosses_tile_edges(cuda, q, dim, dtype, k, off):
     before = topk.LAUNCHES
     got_s, got_i = score_topk(docs, queries, k)
     torch.cuda.synchronize()
-    assert topk.LAUNCHES == before + 1
+    assert topk.LAUNCHES == before + _call_launches(cuda, q, k, n, dtype)
     want_s, want_i = score_topk_reference(docs, queries, k)
     assert torch.equal(got_s, want_s)
     assert torch.equal(got_i, want_i)
@@ -492,7 +658,7 @@ def test_batch_kernel_bf16_float_data_agrees(cuda, q, dim, k, off):
     before = topk.LAUNCHES
     got = score_topk(docs, queries, k)
     torch.cuda.synchronize()
-    assert topk.LAUNCHES == before + 1
+    assert topk.LAUNCHES == before + _call_launches(cuda, q, k, n, torch.bfloat16)
     topk.agree(docs, queries, got, score_topk_reference(docs, queries, k))
 
 
@@ -543,6 +709,82 @@ def test_batch_pass_one_lists_are_each_splits_top_k(cuda, q, k, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q,k", [(5, 15), (33, 100), (257, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_barred_pass_one_lists_are_each_splits_top_k_at_or_before_the_bar(cuda, q, k, dtype):
+    """Pass 1 with a bar (each query's k-th pair of the call's sample run,
+    read in place with stride k) bit for bit the plain per-split top-k
+    among the pairs at or before it, with rows past n_docs masked
+    (integer-valued inputs: many ties with the bar)."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 37 + k)
+    docs = torch.randint(-2, 3, (300_003, 64), device=cuda, generator=gen).to(dtype)
+    queries = torch.randint(-2, 3, (q, 64), device=cuda, generator=gen).float()
+    n_docs = 299_000
+    bar = topk.kth(topk.score_topk_sample(docs, queries, k, n_docs), k)
+    assert bar is not None
+    got_v, got_i = topk.score_topk_candidates(docs, queries, k, n_docs, bar=bar)
+    per_sm = topk.tiles_occupancy(cuda, dtype, k)["blocks_per_sm"]
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split_len = topk.plan(q, docs.shape[0], sm_count, per_sm)[2]
+    want_v, want_i = topk.candidates_reference(docs, queries, k, split_len, n_docs, bar=bar)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+    assert bool((got_i == topk.NO_INDEX).any())  # the bar left some list short
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,k,n_docs", [(5, 15, None), (32, 256, None), (257, 256, None),
+                                        (33, 100, 300_000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_barred_call_is_the_plain_version_bit_for_bit(cuda, q, k, n_docs, dtype):
+    """score_topk_cuda where the bar rule applies (N = BAR_MIN_RATIO x
+    BAR_DOCS + 3): a sample run (two at Q=257), then pass 1 barred by its
+    k-th pairs, each a launch; integer-valued inputs give the plain
+    version's result bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 41 + k)
+    n = topk.BAR_MIN_RATIO * topk.BAR_DOCS + 3
+    assert _call_launches(cuda, q, k, n, dtype) == (3 if q == 257 else 2)
+    docs = torch.randint(-2, 3, (n, 32), device=cuda, generator=gen).to(dtype)
+    queries = torch.randint(-2, 3, (q, 32), device=cuda, generator=gen).float()
+    _bit_equal(docs, queries, k, n_docs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_barred_call_breaks_ties_to_the_lower_index(cuda, dtype):
+    """Every score ties over N = BAR_MIN_RATIO x BAR_DOCS docs: the bar is
+    doc k-1's pair, only docs at or before it survive, and the result is
+    the first k docs in order."""
+    n = topk.BAR_MIN_RATIO * topk.BAR_DOCS
+    docs = torch.zeros(n, 16, device=cuda, dtype=dtype)
+    docs[:, 0] = 1.0
+    queries = torch.zeros(33, 16, device=cuda)
+    queries[:, 0] = 1.0
+    assert _call_launches(cuda, 33, 256, n, dtype) == 2
+    _, got_i = _bit_equal(docs, queries, 256)
+    assert torch.equal(got_i.cpu(), torch.arange(256, dtype=torch.int32).repeat(33, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [32, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_run_sums_each_pair_as_the_main_run(cuda, q, dtype):
+    """The bar is exact only if the sample run's sums are the main run's
+    bit for bit: float inputs, the sample run's top-k pairs that the main
+    run's pass-1 lists hold have the same bits there."""
+    gen = torch.Generator(device=cuda).manual_seed(q)
+    docs = torch.randn(topk.BAR_MIN_RATIO * topk.BAR_DOCS, 128, device=cuda, generator=gen)
+    docs = (docs / docs.norm(dim=1, keepdim=True)).to(dtype)
+    queries = torch.randn(q, 128, device=cuda, generator=gen)
+    sample_v, sample_i, _ = topk.score_topk_sample(docs, queries, 256)
+    cands = topk.score_topk_candidates(docs, queries, 256)
+    per_sm = topk.tiles_occupancy(cuda, dtype, 256)["blocks_per_sm"]
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split_len = topk.plan(q, docs.shape[0], sm_count, per_sm)[2]
+    assert sample_pairs_in_main(sample_v, sample_i, *cands, split_len) > q * 128
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [10, 14, 15, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batch_block_fits_without_spills(cuda, k, dtype):
@@ -579,7 +821,8 @@ def _bit_equal(docs, queries, k, n_docs=None):
     before = topk.LAUNCHES
     got_s, got_i = score_topk(docs, queries, k, n_docs)
     torch.cuda.synchronize()
-    assert topk.LAUNCHES == before + 1
+    assert topk.LAUNCHES == before + _call_launches(docs.device, queries.shape[0], k,
+                                                    docs.shape[0], docs.dtype)
     want_s, want_i = score_topk_reference(docs, queries, k, n_docs)
     assert torch.equal(got_s, want_s)
     assert torch.equal(got_i, want_i)

@@ -9,7 +9,7 @@
 // cores at Q >= 5; f32 never goes through TF32, which would break exact
 // indices).
 //
-// Design: two passes, both launched by score_topk_launch.
+// Design: two passes, both launched by score_topk_bar_launch.
 //  1. Grid (query block x doc split): each block keeps the top-k of its
 //     split and writes it to (Q, n_splits, k) scratch, padded with
 //     (-inf, INT_MAX). Q <= 4 takes score_topk_stream, Q >= 5
@@ -222,42 +222,86 @@
 //    SM.
 //  - Wide selection (k > WIDE_K, score_topk_tiles<T, true>). What bounds
 //    it is latency, not bytes or FLOPs: about 256 k / t of a query's
-//    scores in tile t beat its k-th best (k ln(tiles) + k in a split), and
-//    each must reach its place in a sorted list of k. The narrow selection
-//    did that with 32 lanes of warp 0, one a query, each shifted entry a
-//    dependent shared load and store, all 32 lanes on one bank (strides of
-//    128 and k = 256 words), while three warps waited at
-//    __syncthreads: 28.4 ms at Q=32, 53.5 at Q=256, k=256 (one-word padding
-//    alone: 14.6 and 31.5; kernels/topk_variants.py, variant "selection
-//    strides padded"). Here warp w selects for its own queries 8w..8w+7
-//    with __syncwarp alone (warp_select): a lane votes its 8 scores of each
-//    query against the k-th best (the pad (-inf, NO_INDEX) until the list
-//    is full), so a query with no survivor costs one vote; a query's
-//    survivors are queued in doc order by ballots and prefix counts,
-//    bitonic-sorted across the warp in registers (up to 8 a lane), and
-//    merged into the list at once by merge path (warp_merge: a ballot
-//    finds the first lane whose run changes, each lane one binary search
-//    and at most ceil(k/32) outputs held in registers, written back after a
-//    __syncwarp). Lists are skewed (a padding word after every 32 pairs)
-//    so runs of 8 fall on other banks. The next tile's first chunk is
-//    stored before the selection (buffer 0 is free then; the queues use
-//    buffer 1), so its staging registers are free during it. Pairs are
-//    unique, so the lists are the narrow selection's bit for bit.
-//    37,376 + 256 (k + ceil(k/32)) bytes: 104,960 at k=256, 2 blocks an SM.
-//    181 registers (f32), no spills.
+//    scores in tile t beat its split's k-th best (k ln(tiles) + k in a
+//    split), and each must reach its place in a sorted list of k. The
+//    narrow selection did that with 32 lanes of warp 0, one a query, while
+//    three warps waited at __syncthreads: 28.4 ms at Q=32, 53.5 at Q=256,
+//    k=256. Here warp w selects for its own queries 8w..8w+7 with
+//    __syncwarp alone (warp_select): a lane votes its 8 scores of each
+//    query against the query's bar, so a query with no survivor costs one
+//    vote; a query's survivors go in doc order (ballots and prefix counts)
+//    to its buffer, and are bitonic-sorted across the warp in registers
+//    (sort_queue, up to 8 a lane) and merged into the list by merge path
+//    (warp_merge: a ballot finds the first lane whose run changes, each
+//    lane one binary search and at most ceil(k/32) outputs held in
+//    registers, written back after a __syncwarp). Lists and buffers are
+//    skewed (a padding word after every 32 pairs). The next tile's first
+//    chunk is stored before the selection (buffer 0 is free then; a
+//    flood's queue uses buffer 1). Pairs are unique, so the lists are the
+//    narrow selection's bit for bit.
+//  - The bar (score_topk_bar_launch; kernels/topk.py:bar_plan). Pruned by
+//    its own split's k-th best alone, a short split admitted a fifth of
+//    its docs: at Q=32 (261 splits of 15 tiles) 1,086 survivors a query
+//    and split at k=256, at Q=256 (33 of 119) 1,623, and 15 and 115 merges
+//    (kernels/topk_variants.py, variant "wide counted", NVIDIA H100 80GB
+//    HBM3, 700.00 W). So where a call's splits span at least BAR_MIN_TILES
+//    = 4 tiles, the wrapper first runs both passes over a sample of about
+//    BAR_DOCS = 65,536 docs (halved down to BAR_MIN_DOCS = 8,192 until the
+//    docs hold it BAR_MIN_RATIO = 8 times): the first tiles of every split,
+//    or the first tile of every few splits, so this kernel's split s reads
+//    split_docs docs from s split_len. The sample is spread over the
+//    corpus, fair for docs stored in topic or time order too, and its
+//    splits are long enough at Q=256 over 1M docs (8 tiles) to be barred
+//    in turn by one tile of each. Each query's k-th pair there, (v, x),
+//    read in place with stride k, is its bar: k docs rank at or before it,
+//    so no doc after it is in the top-k, and a split keeps its top-k among
+//    the pairs at or before it (tested as "before (v, x + 1)"). Every top-k
+//    member still reaches pass 2, which merges the same answer, provided
+//    the sample run sums each (query, doc) pair as the main run does: the
+//    same instantiation, tiles at the same 256-row offsets, the same vec
+//    path (chip_smoke.py holds the bits). After a merge the bar becomes the
+//    list's k-th pair where that ranks before it. Where the docs above the
+//    bar crowd into a few splits (a corpus sorted by score), those splits
+//    flood as every split did before: that costs time, never the result.
+//  - Buffers. A query's survivors wait in a buffer of TILE_QUEUE pairs,
+//    written in a loop unrolled over the warp's 8 queries (its scores by
+//    compile-time index). Only where a tile's survivors would overflow it
+//    does the query go through the one site that sorts and merges: the
+//    buffer's pairs and the survivors queued together in a staging
+//    buffer (the buffer alone first where both would not fit BN), so a
+//    merge, O(k) however few pairs arrive, is paid once a buffer; the
+//    buffers left at the split's end are merged then. Shared memory is
+//    37,376 + 256 (list_stride(k) + list_stride(TILE_QUEUE)) + 384 bytes:
+//    113,792 at k=256, 2 blocks an SM (229,632 of 233,472 bytes); 40 pairs
+//    would leave one, and "tile queue of 64" (one block an SM) lost 2-3x
+//    at Q=256, k=256. 199 registers (f32), 254 (bf16), no spills.
 //  - WIDE_K = 14: between k=14 (Q=256: narrow 2.726 ms, wide 2.815) and
 //    k=16 (2.903, 2.846); at Q=32 the wide one is faster at every k (0.477
 //    against 0.485 at k=10), but it fits 2 blocks an SM against 3, which
 //    costs Q=256 (2.748 against 2.594 at k=10) (topk_variants.py
 //    --k-sweep, NVIDIA H100 80GB HBM3, 700.00 W).
-//  - Times at N=1M, D=128, both passes, against the narrow selection in
-//    one run (topk_variants.py --against, same card): k=256 Q=32 f32 28.55
-//    -> 0.898 ms, bf16 28.52 -> 0.793; Q=256 f32 53.72 -> 4.557, bf16
-//    53.77 -> 4.647; k=100 Q=32 f32 3.699 -> 0.625. PERF.md section 6 has
-//    them beside the bound and torch.topk of the matmul. Tried and left
-//    out: holding up to 32 survivors a query in shared memory between
-//    merges (fewer merges at Q=256, but slower at Q=32) and sorting with
-//    pair E lane + t in a lane (fewer shuffles, 244 registers, slower).
+//  - Times at N=1M, D=128, both passes, in one run against the selection
+//    before the bar (every tile's survivors merged at once; topk_variants.py
+//    --wide --ordered --bar-sweep --against, same card): k=256 Q=32 f32
+//    0.862 -> 0.613 ms, bf16 0.641 -> 0.344; Q=256 f32 4.471 -> 3.575,
+//    bf16 2.849 -> 1.920; k=100 Q=32 f32 0.599 -> 0.504. Survivors a query
+//    and split 1,085 -> 271 at Q=32, 1,622 -> 433 at Q=256, merges 15 -> 2
+//    and 115 -> 7 (the sample runs' included). Docs stored topic by topic:
+//    28-44% faster than before; sorted by score: Q=32 within 2%, Q=256
+//    7-11% faster (the docs above the bar crowd into the last splits).
+//    Where no bar applies (Q=32 up to 131,072 docs, Q=256 at 16,384) this
+//    selection is slower than the one before: f32 16-33%, bf16 up to 10%,
+//    with the same merges; "merge every tile" is as slow, so the cost lies
+//    in the f32 wide kernel's code (199 registers against 181), not in the
+//    buffers. PERF.md section 6 has the numbers beside the bound and
+//    torch.topk of the matmul. Tried and left out: buffers without a bar
+//    (slower at Q=32: every tile of a short split floods), buffers of 16
+//    (2-7% slower) or 64 (one block an SM), samples of 8,192-32,768 at 1M
+//    docs, sample runs barred in turn at every split length (Q=32 6-9%
+//    slower), a prefix of the docs as the sample (a fair sample only of
+//    docs stored in random order), the merges at three inlined sites or at one site
+//    with selects (up to 7% slower in bf16, 4% faster in f32 at Q=256), and
+//    sorting with pair E lane + t in a lane (244 registers, slower).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -293,6 +337,8 @@ static_assert(BS % 4 == 0 && STAGE % 4 == 0, "float4 reads need 16-byte rows");
 
 constexpr int MAX_K = 256;
 constexpr int WIDE_K = 14;              // score_topk_tiles: k above this selects by warps
+constexpr int TILE_QUEUE = 32;          // survivors a wide warp buffers a query between merges
+static_assert(TILE_QUEUE >= 1 && TILE_QUEUE <= BN, "a buffer is sorted as a queue of a tile");
 constexpr int MAX_RUN = MAX_K / 32;     // list entries a lane merges at most
 constexpr int WARP_SCRATCH = 2 * (BN + BN / 32);  // words of a warp's queue, skewed
 static_assert(4 * WARP_SCRATCH <= STAGE, "the warps' queues must fit in one staging buffer");
@@ -940,28 +986,46 @@ struct Stage {
     }
 };
 
-// One tile's wide selection for a warp's nq queries (8 at most; lists at
-// lists_v / lists_i + i * ls). acc[i][jj] is query i's score of doc t0 +
-// HALF * (jj / 4) + 4 * lane + jj % 4. Each lane tests its 8 scores of
-// each query against the query's k-th best (the pad while the list is not
-// full), so a query with no survivor costs a vote. The survivors of a
-// query are queued in doc order (ballots and prefix counts, no atomics),
-// read into registers (E = 1, 2, 4 or 8 a lane: 32 E >= the survivors),
-// sorted across the warp, written back over the queue and merged into the
-// list in one step.
+// Sort a warp's queue of n >= 1 survivors (skewed; E = 1, 2, 4 or 8 a
+// lane: 32 E >= n) in its first n places and merge it into the sorted
+// list lv / lx of k.
+__device__ __forceinline__ void sort_merge(float* lv, int* lx, int k, float* qv, int* qx, int n,
+                                           int lane) {
+    if (n <= 32) sort_queue<1>(qv, qx, n, lane, n);
+    else if (n <= 64) sort_queue<2>(qv, qx, n, lane, n);
+    else if (n <= 128) sort_queue<4>(qv, qx, n, lane, n);
+    else sort_queue<8>(qv, qx, n, lane, n);
+    warp_merge(lv, lx, k, qv, qx, n, lane);
+}
+
+// One tile's wide selection for a warp's nq queries (8 at most; query i's
+// list at lists_v / lists_i + i * ls, its buffer at bufs_v / bufs_i + i *
+// list_stride(TILE_QUEUE) holding held[i] survivors, its bar at bar_v[i] /
+// bar_i[i]). acc[i][jj] is query i's score of doc t0 + HALF * (jj / 4) +
+// 4 * lane + jj % 4. Each lane tests its 8 scores of each query against
+// the query's bar (a pair must rank before it), so a query with no
+// survivor costs a vote. A query's survivors go in doc order (ballots and
+// prefix counts, no atomics) to its buffer, in a loop unrolled over the 8
+// queries. Where they would overflow it, the query waits for the second
+// loop: the buffer's pairs and the survivors are queued in `scratch`,
+// sorted across the warp and merged into the list at once (the buffer
+// alone first where both would not fit a queue of BN). One site sorts and
+// merges, so the code stays small. After a merge the bar becomes the
+// list's k-th pair if that ranks before it.
 __device__ __forceinline__ void warp_select(const float (&acc)[8][8], float* lists_v,
                                             int* lists_i, int ls, int k, float* scratch,
-                                            long long t0, long long end, long long n_docs,
-                                            int nq, int lane) {
+                                            float* bufs_v, int* bufs_i, int* held, float* bar_v,
+                                            int* bar_i, long long t0, long long end,
+                                            long long n_docs, int nq, int lane) {
+    constexpr int bs = list_stride(TILE_QUEUE);
     float* qv = scratch;  // [BN] the queue, skewed, then its survivors sorted
     int* qx = reinterpret_cast<int*>(qv + WARP_SCRATCH / 2);
     unsigned pending = 0;         // bit i: query i has survivors, the same in every lane
     unsigned long long pass = 0;  // bit 8 i + jj: this lane's score jj of query i survives
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-        const int kth = i * ls + skew(k - 1);
-        const float kth_v = lists_v[kth];
-        const int kth_i = lists_i[kth];
+        const float kth_v = bar_v[i];
+        const int kth_i = bar_i[i];
         unsigned mine = 0;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
@@ -973,19 +1037,12 @@ __device__ __forceinline__ void warp_select(const float (&acc)[8][8], float* lis
         if (__any_sync(FULL, mine != 0) && i < nq) pending |= 1u << i;
     }
     const unsigned below = (1u << lane) - 1;
-    while (pending) {
-        const int i = __ffs(pending) - 1;
-        pending &= pending - 1;
+    unsigned merging = 0;  // bit i: query i's survivors would overflow its buffer
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        if (((pending >> i) & 1u) == 0) continue;
         const unsigned mine = (unsigned)(pass >> (8 * i)) & 0xffu;
-        float s[8];  // acc[i], by selects: i is not known at compile time here
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-            float x = acc[0][jj];
-#pragma unroll
-            for (int ii = 1; ii < 8; ++ii) x = i == ii ? acc[ii][jj] : x;
-            s[jj] = x;
-        }
-        // each survivor's place in the queue: half 0's docs in order, then half 1's
+        // each survivor's place: half 0's docs in order, then half 1's
         int at[2] = {0, 0}, m[2] = {0, 0};
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
@@ -994,22 +1051,78 @@ __device__ __forceinline__ void warp_select(const float (&acc)[8][8], float* lis
             m[jj >> 2] += __popc(b);
         }
         at[1] += m[0];
+        const int n = m[0] + m[1];
+        const int h = held[i];
+        if (h + n > TILE_QUEUE) {
+            merging |= 1u << i;
+            continue;
+        }
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
             if ((mine >> jj) & 1u) {
                 const long long doc = t0 + HALF * (jj >> 2) + 4 * lane + (jj & 3);
-                const int p = skew(at[jj >> 2]++);
-                qv[p] = doc < n_docs ? s[jj] : MASKED;
-                qx[p] = (int)doc;
+                const int p = i * bs + skew(h + at[jj >> 2]++);
+                bufs_v[p] = doc < n_docs ? acc[i][jj] : MASKED;
+                bufs_i[p] = (int)doc;
+            }
+        }
+        if (lane == 0) held[i] = h + n;
+    }
+    __syncwarp();
+    while (merging) {
+        const int i = __ffs(merging) - 1;
+        const unsigned mine = (unsigned)(pass >> (8 * i)) & 0xffu;
+        int at[2] = {0, 0}, m[2] = {0, 0};
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+            const unsigned b = __ballot_sync(FULL, (mine >> jj) & 1u);
+            at[jj >> 2] += __popc(b & below);
+            m[jj >> 2] += __popc(b);
+        }
+        at[1] += m[0];
+        const int n = m[0] + m[1];
+        float* lv = lists_v + i * ls;
+        int* lx = lists_i + i * ls;
+        float* bv = bufs_v + i * bs;
+        int* bx = bufs_i + i * bs;
+        const int h = held[i];
+        const bool alone = h + n > BN;  // the buffer first, then query i again
+        if (!alone) {
+            merging &= merging - 1;
+            if (lane < h) {  // the buffer's pairs head the queue
+                qv[skew(lane)] = bv[skew(lane)];
+                qx[skew(lane)] = bx[skew(lane)];
+            }
+            float s[8];  // acc[i], by selects: i is not known at compile time here
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+                float x = acc[0][jj];
+#pragma unroll
+                for (int ii = 1; ii < 8; ++ii) x = i == ii ? acc[ii][jj] : x;
+                s[jj] = x;
+            }
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+                if ((mine >> jj) & 1u) {
+                    const long long doc = t0 + HALF * (jj >> 2) + 4 * lane + (jj & 3);
+                    const int p = skew(h + at[jj >> 2]++);
+                    qv[p] = doc < n_docs ? s[jj] : MASKED;
+                    qx[p] = (int)doc;
+                }
             }
         }
         __syncwarp();
-        const int n = m[0] + m[1];
-        if (n <= 32) sort_queue<1>(qv, qx, n, lane);
-        else if (n <= 64) sort_queue<2>(qv, qx, n, lane);
-        else if (n <= 128) sort_queue<4>(qv, qx, n, lane);
-        else sort_queue<8>(qv, qx, n, lane);
-        warp_merge(lists_v + i * ls, lists_i + i * ls, k, qv, qx, n, lane);
+        sort_merge(lv, lx, k, alone ? bv : qv, alone ? bx : qx, alone ? h : h + n, lane);
+        if (lane == 0) {
+            held[i] = 0;
+            const float v = lv[skew(k - 1)];
+            const int x = lx[skew(k - 1)];
+            if (ranks_before(v, x, bar_v[i], bar_i[i])) {  // a new k-th
+                bar_v[i] = v;
+                bar_i[i] = x;
+            }
+        }
+        __syncwarp();
     }
 }
 
@@ -1195,15 +1308,20 @@ constexpr int tiles_min_blocks() {
 }
 
 // WIDE (k > WIDE_K): each warp selects for its own 8 queries with
-// __syncwarp alone (warp_select); else one thread a query insertion-sorts
-// a queue of each half tile (see the note). f32 docs are summed on the CUDA
+// __syncwarp alone (warp_select), pruned by a bar where bar_v is given
+// (query q's pair at bar_v / bar_i + q * bar_stride: only pairs that rank
+// at or before it are kept), split s reading docs [s split_len, s
+// split_len + split_docs); else one thread a query insertion-sorts a
+// queue of each half tile (see the note), split s reading split_len docs. f32 docs are summed on the CUDA
 // cores (Stage, fmaf), bf16 docs on the tensor cores (MMA: stage_chunk,
 // mma_chunk, quad_transpose); the selections read both alike.
 template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS1, tiles_min_blocks<T, WIDE>())
 score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long long n,
                  int n_queries, int dim, int k, long long n_docs, long long split_len,
-                 int vec, float* __restrict__ cand_v, int* __restrict__ cand_i) {
+                 int vec, float* __restrict__ cand_v, int* __restrict__ cand_i,
+                 const float* __restrict__ bar_v, const int* __restrict__ bar_i,
+                 long long bar_stride, long long split_docs) {
     constexpr bool MMA = sizeof(T) == 2;
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);      // [2][STAGE] staging
@@ -1215,11 +1333,19 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
     int* queue_n = top_i + BQ * k;                       // [BQ]
     int* filled = queue_n + BQ;                          // [BQ]
     // wide selection: lists [BQ][list_stride(k)], skewed, sorted, padded
-    // with (-inf, NO_INDEX); a warp's queue over staging buffer 1, which no
-    // warp reads or writes from a tile's last __syncthreads to the next one
+    // with (-inf, NO_INDEX); buffers [BQ][list_stride(TILE_QUEUE)],
+    // skewed; each query's bar (value, index) and buffer count; a warp's
+    // queue over staging buffer 1, which no warp reads or writes from a
+    // tile's last __syncthreads to the next one
     const int ls = list_stride(k);
+    constexpr int bs = list_stride(TILE_QUEUE);
     float* list_v = smem + 2 * STAGE;
     int* list_i = reinterpret_cast<int*>(list_v + BQ * ls);
+    float* buf_v = reinterpret_cast<float*>(list_i + BQ * ls);
+    int* buf_i = reinterpret_cast<int*>(buf_v + BQ * bs);
+    float* thr_v = reinterpret_cast<float*>(buf_i + BQ * bs);
+    int* thr_i = reinterpret_cast<int*>(thr_v + BQ);
+    int* held = thr_i + BQ;
 
     const int tid = threadIdx.x;
     const int lane = tid & 31;
@@ -1227,13 +1353,27 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
     const int q0 = blockIdx.x * BQ;
     const int split = blockIdx.y;
     const long long begin = (long long)split * split_len;
-    const long long end = min(begin + split_len, n);
+    const long long end = min(begin + (WIDE ? split_docs : split_len), n);
     const int n_chunks = MMA ? (dim + MMA_DEPTH - 1) / MMA_DEPTH : (dim + BK - 1) / BK;
 
     if constexpr (WIDE) {
         for (int e = lane; e < 8 * ls; e += 32) {
             list_v[8 * warp * ls + e] = -INFINITY;
             list_i[8 * warp * ls + e] = NO_INDEX;
+        }
+        if (lane < 8) {
+            // at or before (v, x) is before (v, x + 1); no bar: the pad
+            const int ql = 8 * warp + lane;
+            float v = -INFINITY;
+            int x = NO_INDEX;
+            if (bar_v != nullptr && q0 + ql < n_queries) {
+                v = bar_v[(long long)(q0 + ql) * bar_stride];
+                x = bar_i[(long long)(q0 + ql) * bar_stride];
+                x = x < NO_INDEX ? x + 1 : NO_INDEX;
+            }
+            thr_v[ql] = v;
+            thr_i[ql] = x;
+            held[ql] = 0;
         }
     } else if (tid < BQ) {
         queue_n[tid] = 0;
@@ -1319,7 +1459,9 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
                 if (t0 + BN < end) st.store(smem, warp, lane);
             warp_select(acc, list_v + 8 * warp * ls, list_i + 8 * warp * ls, ls, k,
                         MMA ? smem + (mma_buf ^ 1) * (MMA_STAGE / 4) + warp * WARP_SCRATCH
-                            : smem + STAGE + warp * WARP_SCRATCH, t0, end, n_docs,
+                            : smem + STAGE + warp * WARP_SCRATCH,
+                        buf_v + 8 * warp * bs, buf_i + 8 * warp * bs, held + 8 * warp,
+                        thr_v + 8 * warp, thr_i + 8 * warp, t0, end, n_docs,
                         min(8, n_queries - q0 - 8 * warp), lane);
             if (t0 + BN < end) __syncthreads();
             continue;
@@ -1388,9 +1530,15 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
         }
     }
 
-    if constexpr (WIDE) {  // each warp its own queries' lists
+    if constexpr (WIDE) {  // each warp its own queries' lists, their buffers merged first
         for (int i = 0; i < 8 && q0 + 8 * warp + i < n_queries; ++i) {
             const int ql = 8 * warp + i;
+            if (held[ql] > 0) {
+                sort_queue<(TILE_QUEUE + 31) / 32>(buf_v + ql * bs, buf_i + ql * bs, held[ql],
+                                                   lane, held[ql]);
+                warp_merge(list_v + ql * ls, list_i + ql * ls, k, buf_v + ql * bs,
+                           buf_i + ql * bs, held[ql], lane);
+            }
             const long long o = ((long long)(q0 + ql) * gridDim.y + split) * k;
             for (int r = lane; r < k; r += 32) {
                 cand_v[o + r] = list_v[ql * ls + skew(r)];
@@ -1643,16 +1791,19 @@ cudaError_t stream_occupancy(int n_queries, int dim, int k, int* blocks_per_sm, 
     }
 }
 
-// The wide selection's lists, or the narrow one's lists, queue counts and
-// fill counts, after the two staging buffers.
+// The wide selection's lists, buffers, bars and buffer counts, or the
+// narrow one's lists, queue counts and fill counts, after the two staging
+// buffers.
 size_t tiles_smem(int k) {
-    if (k > WIDE_K) return sizeof(float) * (2 * STAGE + 2 * BQ * list_stride(k));
+    if (k > WIDE_K)
+        return sizeof(float) * (2 * STAGE + 2 * BQ * (list_stride(k) + list_stride(TILE_QUEUE))
+                                + 3 * BQ);
     return sizeof(float) * (2 * STAGE + BQ * k) + sizeof(int) * (BQ * k + 2 * BQ);
 }
 
 template <typename T>
 using TilesKernel = void (*)(const T*, const T*, long long, int, int, int, long long, long long,
-                             int, float*, int*);
+                             int, float*, int*, const float*, const int*, long long, long long);
 
 // The instantiation of score_topk_tiles that takes k, its shared memory set.
 template <typename T>
@@ -1665,7 +1816,8 @@ cudaError_t tiles_kernel(int k, TilesKernel<T>* kernel) {
 template <typename T>
 cudaError_t launch_tiles(const void* docs, const void* queries, long long n, int n_queries,
                          int dim, int k, long long n_docs, int n_splits, long long split_len,
-                         float* cand_v, int* cand_i, cudaStream_t stream) {
+                         float* cand_v, int* cand_i, const float* bar_v, const int* bar_i,
+                         long long bar_stride, long long split_docs, cudaStream_t stream) {
     if (k < 1 || k > MAX_K) return cudaErrorInvalidValue;
     TilesKernel<T> kernel;
     cudaError_t err = tiles_kernel<T>(k, &kernel);
@@ -1675,7 +1827,7 @@ cudaError_t launch_tiles(const void* docs, const void* queries, long long n, int
     const dim3 grid((n_queries + BQ - 1) / BQ, n_splits);
     kernel<<<grid, THREADS1, tiles_smem(k), stream>>>(
         static_cast<const T*>(docs), static_cast<const T*>(queries), n, n_queries, dim, k,
-        n_docs, split_len, vec, cand_v, cand_i);
+        n_docs, split_len, vec, cand_v, cand_i, bar_v, bar_i, bar_stride, split_docs);
     return cudaGetLastError();
 }
 
@@ -1722,13 +1874,23 @@ extern "C" {
 // on the tensor cores).
 // merge_group is pass 2's group of lists (merge_plan); 0 runs pass 1 alone
 // and leaves its lists in cand_v/cand_i, out_v/out_i untouched.
+// The wide selection alone (score_topk_tiles: rows_per_thread 8, k >
+// WIDE_K) takes a bar and a sample: bar_v/bar_i (nullptr for none) give
+// query q's bar at q * bar_stride, and each split then keeps its top-k
+// among the pairs that rank at or before it; split s reads the docs
+// [s split_len, s split_len + split_docs), cut at n (elsewhere split_docs
+// is split_len).
 // Returns the cudaError_t of the launches (0 on success).
-int score_topk_launch(const void* docs, const void* queries, int docs_bf16,
-                      long long n, int n_queries, int dim, int k, long long n_docs,
-                      int n_splits, long long split_len, int rows_per_thread,
-                      float* cand_v, int* cand_i, float* out_v, int* out_i,
-                      int merge_group, void* stream) {
-    if (n_splits < 1 || n_splits > MAX_SPLITS || merge_group < 0)
+int score_topk_bar_launch(const void* docs, const void* queries, int docs_bf16,
+                          long long n, int n_queries, int dim, int k, long long n_docs,
+                          int n_splits, long long split_len, int rows_per_thread,
+                          float* cand_v, int* cand_i, float* out_v, int* out_i,
+                          int merge_group, const float* bar_v, const int* bar_i,
+                          long long bar_stride, long long split_docs, void* stream) {
+    const bool wide = rows_per_thread != 1 && k > WIDE_K;
+    if (n_splits < 1 || n_splits > MAX_SPLITS || merge_group < 0
+        || (bar_v != nullptr && (bar_i == nullptr || !wide)) || split_docs < 1
+        || split_docs > split_len || (split_docs != split_len && !wide))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
@@ -1737,13 +1899,15 @@ int score_topk_launch(const void* docs, const void* queries, int docs_bf16,
             ? launch_stream<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
                                            n_splits, split_len, cand_v, cand_i, s)
             : launch_tiles<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
-                                          n_splits, split_len, cand_v, cand_i, s);
+                                          n_splits, split_len, cand_v, cand_i, bar_v, bar_i,
+                                          bar_stride, split_docs, s);
     else
         err = rows_per_thread == 1
             ? launch_stream<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
                                    split_len, cand_v, cand_i, s)
             : launch_tiles<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
-                                  split_len, cand_v, cand_i, s);
+                                  split_len, cand_v, cand_i, bar_v, bar_i, bar_stride,
+                                  split_docs, s);
     if (err != cudaSuccess || merge_group == 0) return (int)err;
     return (int)launch_merge(cand_v, cand_i, n_queries, n_splits, k, merge_group, out_v, out_i,
                              s);

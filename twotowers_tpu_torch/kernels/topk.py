@@ -16,6 +16,16 @@ pass 2 merges them by a fixed tree (``merge_plan``). ``merge_topk_cuda``
 runs pass 2 alone and ``merge_topk_reference`` is its plain version, for
 the checks; ``score_topk_candidates`` runs pass 1 alone and
 ``candidates_reference`` is its plain version.
+
+At Q >= 5, k > ``WIDE_K`` and splits of several tiles (``bar_plan``), a
+call first runs both passes over a sample of the docs: the first tiles of
+every split, or of every few splits, about ``BAR_DOCS`` docs spread over
+the corpus whatever its order (``sample_topk``). Each query's k-th pair
+there is its bar: k docs rank at or before it, so no doc that ranks after
+it is in the top-k, and pass 1 over all N docs keeps only pairs at or
+before it. Pass 2 then merges the same top-k, bit for bit, since the
+sample's tiles lie at the main run's 256-row offsets, so the sample run
+sums each (query, doc) pair as the main run does.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -39,6 +49,11 @@ WIDE_K = 14         # score_topk.cu:WIDE_K: at Q >= 5, k above it selects by war
 STREAM_WIDE_K = 10  # score_topk.cu:STREAM_WIDE_K: at Q <= 4, k above it batches survivors
 STREAM_QUEUE = 64   # score_topk.cu:STREAM_QUEUE: survivors a wide Q <= 4 warp queues a query
 STREAM_WARPS = 8    # score_topk.cu:STREAM_WARPS, warps of a Q <= 4 block
+TILE_QUEUE = 32     # score_topk.cu:TILE_QUEUE: survivors a wide Q >= 5 warp buffers a query
+BAR_DOCS = 65_536      # docs of the largest sample whose k-th pairs bar a wide Q >= 5 call
+BAR_MIN_DOCS = 8_192   # ... and of the smallest (bar_plan)
+BAR_MIN_RATIO = 8      # ... that the docs a pass reads hold at least this many times
+BAR_MIN_TILES = 4      # ... where the call's splits span at least this many tiles
 STAGING_BYTES = 37_376  # score_topk.cu: 2 * STAGE floats of the Q >= 5 pass 1
 MMA_DEPTH = 32      # score_topk.cu:MMA_DEPTH: depth of a bf16 Q >= 5 stage (256 doc
                     # and 32 query rows of 64 bytes, two stages within STAGING_BYTES)
@@ -46,8 +61,9 @@ MMA_DEPTH = 32      # score_topk.cu:MMA_DEPTH: depth of a bf16 Q >= 5 stage (256
 MERGE_SMEM_BUDGET = 110 * 1024  # shared bytes of a pass-2 block, at most: 2 blocks an SM
 NO_INDEX = 2**31 - 1  # the index of a padding pair, beside the value -inf
 
-# kernel launches so far (both passes, or one of them alone); a run reads it
-# to show it went through the kernel
+# launches of the kernel so far (both passes, or one pass alone; a barred
+# call counts its sample runs too); a run reads it to show it went through
+# the kernel
 LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -83,11 +99,74 @@ def tiles_smem(k: int) -> int:
     bf16 docs alike (``score_topk.cu:tiles_smem``): the staging buffers
     (the bf16 kernel's two cp.async stages fit in them), then the lists of
     the instantiation that k takes. Above ``WIDE_K`` the wide selection's
-    32 lists of values and indices, each with a padding word after every 32
-    pairs; else the narrow one's lists and two counts a query."""
+    32 lists of values and indices and 32 buffers of ``TILE_QUEUE``, each
+    with a padding word after every 32 pairs, then each query's bar (a
+    value and an index) and buffer count; else the narrow one's lists and
+    two counts a query."""
     if k > WIDE_K:
-        return STAGING_BYTES + 8 * 32 * list_stride(k)
+        return STAGING_BYTES + 8 * 32 * (list_stride(k) + list_stride(TILE_QUEUE)) + 12 * 32
     return STAGING_BYTES + 8 * 32 * k + 8 * 32
+
+
+def bar_plan(n_queries: int, k: int, n: int, n_splits: int, split_len: int, split_docs: int,
+             max_docs: int = BAR_DOCS, min_docs: int = BAR_MIN_DOCS,
+             min_ratio: int = BAR_MIN_RATIO,
+             min_tiles: int = BAR_MIN_TILES) -> Optional[Tuple[int, int, int]]:
+    """The sample whose k-th pairs bar a Q >= 5 pass 1 that runs
+    ``n_splits`` splits, split s over docs [s split_len, s split_len +
+    split_docs) cut at N: the sample run's own (n_splits, split_len,
+    split_docs), or None for no bar.
+
+    Only the wide selection takes a bar (Q >= 5, k > ``WIDE_K``), and only
+    where a split spans at least ``min_tiles`` tiles of ``BATCH_TILE_N``:
+    a shorter one admits few pairs it could save, and the sample run's
+    latency is not paid back. The sample holds about ``rows`` docs, the
+    largest of ``max_docs``, its half and so on down to ``min_docs`` that
+    the docs the pass reads hold ``min_ratio`` times (none if below a
+    tile): the first
+    ceil(tiles / n_splits) tiles of every split, or the first tile of
+    every (n_splits // tiles)-th split where there are more splits than
+    tiles. So it is spread over the corpus, a fair sample of a corpus in
+    topic or time order too, and its tiles lie at the pass's own 256-row
+    offsets. A sample run's splits are long enough at Q=256 over 1M docs
+    (8 tiles) to be barred in turn."""
+    if n_queries <= 4 or k <= WIDE_K or split_docs < min_tiles * BATCH_TILE_N:
+        return None
+    last = (n_splits - 1) * split_len  # every split but the last reads split_docs
+    covered = (n_splits - 1) * split_docs + min(split_docs, n - last)
+    rows = max_docs
+    while rows > min_docs and min_ratio * rows > covered:
+        rows //= 2
+    if min_ratio * rows > covered or rows < BATCH_TILE_N:  # a whole tile: k docs or more
+        return None
+    tiles = rows // BATCH_TILE_N
+    step = max(1, n_splits // tiles)
+    return -(-n_splits // step), step * split_len, -(-tiles // n_splits) * BATCH_TILE_N
+
+
+Bar = Tuple[torch.Tensor, torch.Tensor]
+Launch = Callable[[int, int, int, Optional[Bar]], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def sample_topk(launch: Launch, n_queries: int, k: int, n: int, n_splits: int, split_len: int,
+                split_docs: int, **rule) -> Optional[Tuple[torch.Tensor, torch.Tensor, tuple]]:
+    """The run of both passes over the sample that bars a pass 1 under
+    (n_splits, split_len, split_docs) (``bar_plan``, ``rule`` its
+    keywords): (out_v, out_i, sample plan), or None where it takes none.
+    ``launch(n_splits, split_len, split_docs, bar)`` runs both passes under
+    a plan and returns (out_v, out_i); the sample run is barred in turn by
+    the same rule. Each query's bar is its k-th pair here (``kth``)."""
+    sample = bar_plan(n_queries, k, n, n_splits, split_len, split_docs, **rule)
+    if sample is None:
+        return None
+    inner = sample_topk(launch, n_queries, k, n, *sample, **rule)
+    return (*launch(*sample, kth(inner, k)), sample)
+
+
+def kth(top, k: int) -> Optional[Bar]:
+    """Each query's k-th pair of a ``sample_topk`` run, read in place
+    (stride k: no copy, no host read), or None for none."""
+    return None if top is None else (top[0][:, k - 1], top[1][:, k - 1])
 
 
 def list_stride(k: int) -> int:
@@ -169,11 +248,11 @@ def check_args(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int) -> None:
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("score_topk")
-    fn = lib.score_topk_launch
+    fn = lib.score_topk_bar_launch
     if fn.argtypes is None:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64, i32,
-                       ptr, ptr, ptr, ptr, i32, ptr]
+                       ptr, ptr, ptr, ptr, i32, ptr, ptr, i64, i64, ptr]
         fn.restype = i32
         occ = lib.score_topk_tiles_occupancy
         occ.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 4
@@ -246,10 +325,26 @@ def merge_occupancy(device: torch.device, final_level: bool, lists: int,
     return dict(zip(_OCCUPANCY_KEYS, (o.value for o in out)))
 
 
-def _launch(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optional[int],
-            merge: bool):
-    """Pass 1, then pass 2 if ``merge``: (cand_v, cand_i, out_v, out_i)."""
-    global LAUNCHES
+def _check_bar(bar: Bar, n_queries: int, k: int, device: torch.device) -> None:
+    bar_v, bar_i = bar
+    if not (bar_v.shape == bar_i.shape == (n_queries,) and bar_v.dtype == torch.float32
+            and bar_i.dtype == torch.int32 and bar_v.stride() == bar_i.stride()):
+        raise ValueError("score_topk bar: a (Q,) float32 and a (Q,) int32 tensor of one "
+                         f"stride, got {tuple(bar_v.shape)} {bar_v.dtype} and "
+                         f"{tuple(bar_i.shape)} {bar_i.dtype}")
+    if bar_v.device != device or bar_i.device != device:
+        raise ValueError(f"score_topk bar: must be on {device}")
+    if n_queries <= 4 or k <= WIDE_K:
+        raise ValueError(f"score_topk bar: only Q >= 5 and k > {WIDE_K} take one, "
+                         f"got Q={n_queries}, k={k}")
+
+
+def _call(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optional[int],
+          merge: bool):
+    """Check a call and plan it: (launch, n_splits, split_len), where
+    ``launch(n_splits, split_len, split_docs, bar)`` launches pass 1 under
+    that plan, then pass 2 if ``merge``, returns (cand_v, cand_i, out_v,
+    out_i) and adds one to ``LAUNCHES``."""
     check_args(doc_matrix, queries, k)
     device = doc_matrix.device
     if device.type != "cuda" or queries.device != device:
@@ -265,24 +360,46 @@ def _launch(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Opt
     else:
         block = stream_occupancy(device, doc_matrix.dtype, n_queries, dim, k)
     rows, n_splits, split_len = plan(n_queries, n, sm_count, block["blocks_per_sm"])
-    group = merge_plan(n_splits, k)[0] if merge else 0
 
-    cand_v = torch.empty((n_queries, n_splits, k), dtype=torch.float32, device=device)
-    cand_i = torch.empty((n_queries, n_splits, k), dtype=torch.int32, device=device)
-    out_v = torch.empty((n_queries, k), dtype=torch.float32, device=device)
-    out_i = torch.empty((n_queries, k), dtype=torch.int32, device=device)
-    lib = _lib()
-    with torch.cuda.device(device):
-        err = lib.score_topk_launch(
-            doc_matrix.data_ptr(), queries.data_ptr(),
-            int(doc_matrix.dtype == torch.bfloat16), n, n_queries, dim, k, n_docs,
-            n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), group,
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"score_topk kernel launch failed with cudaError_t {err}")
-    LAUNCHES += 1
-    return cand_v, cand_i, out_v, out_i
+    def launch(n_splits: int, split_len: int, split_docs: int, bar: Optional[Bar]):
+        global LAUNCHES
+        bar_args = (None, None, 0)
+        if bar is not None:
+            _check_bar(bar, n_queries, k, device)
+            bar_args = (bar[0].data_ptr(), bar[1].data_ptr(), bar[0].stride(0))
+        cand_v = torch.empty((n_queries, n_splits, k), dtype=torch.float32, device=device)
+        cand_i = torch.empty((n_queries, n_splits, k), dtype=torch.int32, device=device)
+        out_v = torch.empty((n_queries, k), dtype=torch.float32, device=device)
+        out_i = torch.empty((n_queries, k), dtype=torch.int32, device=device)
+        group = merge_plan(n_splits, k)[0] if merge else 0
+        with torch.cuda.device(device):
+            err = _lib().score_topk_bar_launch(
+                doc_matrix.data_ptr(), queries.data_ptr(),
+                int(doc_matrix.dtype == torch.bfloat16), n, n_queries, dim, k, n_docs,
+                n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
+                out_v.data_ptr(), out_i.data_ptr(), group, *bar_args, split_docs,
+                torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"score_topk kernel launch failed with cudaError_t {err}")
+        LAUNCHES += 1
+        return cand_v, cand_i, out_v, out_i
+
+    return launch, n_splits, split_len
+
+
+def score_topk_sample(
+    doc_matrix: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    n_docs: Optional[int] = None,
+) -> Optional[Tuple[torch.Tensor, torch.Tensor, tuple]]:
+    """The sample run that ``score_topk_cuda`` launches first on these
+    arguments (``sample_topk``): (out_v, out_i, its (n_splits, split_len,
+    split_docs)), or None where the call takes no bar. For the checks and
+    the timings; counted in ``LAUNCHES``."""
+    launch, n_splits, split_len = _call(doc_matrix, queries, k, n_docs, merge=True)
+    return sample_topk(lambda *a: launch(*a)[2:], queries.shape[0], k, doc_matrix.shape[0],
+                       n_splits, split_len, split_len)
 
 
 def score_topk_cuda(
@@ -292,8 +409,13 @@ def score_topk_cuda(
     n_docs: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of ``queries @ doc_matrix.T`` on the card: (Q, k) float32
-    scores and int32 indices."""
-    return _launch(doc_matrix, queries, k, n_docs, merge=True)[2:]
+    scores and int32 indices. Barred by a sample run where ``bar_plan``
+    says so: one launch, and one more for each sample run."""
+    launch, n_splits, split_len = _call(doc_matrix, queries, k, n_docs, merge=True)
+    run = lambda *a: launch(*a)[2:]  # noqa: E731
+    top = sample_topk(run, queries.shape[0], k, doc_matrix.shape[0], n_splits, split_len,
+                      split_len)
+    return run(n_splits, split_len, split_len, kth(top, k))
 
 
 def score_topk_candidates(
@@ -301,11 +423,16 @@ def score_topk_candidates(
     queries: torch.Tensor,
     k: int,
     n_docs: Optional[int] = None,
+    bar: Optional[Bar] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 alone on the card: the (Q, n_splits, k) sorted lists, padded
-    with (-inf, ``NO_INDEX``), that pass 2 of ``score_topk_cuda`` would
-    merge. For the checks of pass 1 and pass 2; counted in ``LAUNCHES``."""
-    return _launch(doc_matrix, queries, k, n_docs, merge=False)[:2]
+    with (-inf, ``NO_INDEX``), that pass 2 would merge. With ``bar`` (a
+    (Q,) float32 value and int32 index a query, Q >= 5 and k > ``WIDE_K``
+    only), each split's top-k among the pairs that rank at or before it;
+    without one, unbarred. For the checks of pass 1 and pass 2; counted in
+    ``LAUNCHES``."""
+    launch, n_splits, split_len = _call(doc_matrix, queries, k, n_docs, merge=False)
+    return launch(n_splits, split_len, split_len, bar)[:2]
 
 
 def candidates_reference(
@@ -314,27 +441,39 @@ def candidates_reference(
     k: int,
     split_len: int,
     n_docs: Optional[int] = None,
+    bar: Optional[Bar] = None,
+    split_docs: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch pass 1: for each split of ``split_len`` docs (the last
-    one shorter), each query's top-k of it as the plain version ranks them
-    (``ops.topk_score.score_topk_reference``), with global indices, and
-    (-inf, ``NO_INDEX``) after a split's docs run out. (Q, n_splits, k), as
+    """Plain PyTorch pass 1: for each split, the docs [s split_len, s
+    split_len + split_docs) cut at N (``split_docs`` defaults to
+    ``split_len``), each query's top-k of it as the plain version ranks
+    them (``ops.topk_score.score_topk_reference``), with global indices,
+    and (-inf, ``NO_INDEX``) after a split's docs run out. With ``bar`` (a
+    (Q,) value and index a query), only the pairs that rank at or before
+    the query's bar pair count. (Q, n_splits, k), as
     ``score_topk_candidates`` leaves them under a plan of that
     ``split_len``. Used by the tests and the checks only."""
     from ..ops.topk_score import score_topk_reference
 
     n = doc_matrix.shape[0]
     n_docs = n if n_docs is None else int(n_docs)
+    split_docs = split_len if split_docs is None else split_docs
     n_splits = -(-n // split_len)
     cand_v = torch.full((queries.shape[0], n_splits, k), -math.inf, device=doc_matrix.device)
     cand_i = torch.full_like(cand_v, NO_INDEX, dtype=torch.int32)
     for s in range(n_splits):
         begin = s * split_len
-        part = doc_matrix[begin:begin + split_len]
+        part = doc_matrix[begin:begin + split_docs]
         real = min(k, part.shape[0])
         v, i = score_topk_reference(part, queries, real, n_docs - begin)
+        i = i + begin
+        if bar is not None:  # ranks at or before the bar: a prefix of the sorted list
+            bv, bi = bar[0][:, None], bar[1][:, None]
+            keep = (v > bv) | ((v == bv) & (i <= bi))
+            v = v.masked_fill(~keep, -math.inf)
+            i = i.masked_fill(~keep, NO_INDEX)
         cand_v[:, s, :real] = v
-        cand_i[:, s, :real] = i + begin
+        cand_i[:, s, :real] = i
     return cand_v, cand_i
 
 

@@ -1,7 +1,8 @@
 """Time variants of the score + top-k kernel in turns on one card.
 
     python -m twotowers_tpu_torch.kernels.topk_variants [--against DIR] [--only NAME ...]
-                                                        [--k-sweep]
+                                                        [--k-sweep] [--wide] [--bar-sweep]
+                                                        [--ordered]
 
 Each variant is ``csrc/score_topk.cu`` with one constant or launch bound
 rewritten, compiled by ``nvcc`` (all at once) into ``build/topk_variants/``,
@@ -38,9 +39,27 @@ SASS instructions of "against"); then the opcode counts of the shipped
 passes 1, f32 and bf16 (``cuobjdump -sass``; the run fails unless the
 bf16 Q >= 5 pass holds ``HMMA`` and fewer FFMA than HMMA) and the SM
 clock and power that ``nvidia-smi`` samples while the shipped kernel
-runs Q=256 f32 and Q=1 f32 for a few seconds each; last the card's name
-and power limit. The variant "selection cut" times the Q >= 5 pass's
+runs Q=256 f32 and Q=1 f32 for a few seconds each; then
+``torch.topk`` of the matmul at every shape ("library_ms"); last the
+card's name and power limit. The variant "selection cut" times the Q >= 5 pass's
 product alone, bf16 on the tensor cores and f32 on the CUDA cores.
+
+The Q >= 5 wide selection (k > 14) by stage: "wide votes only", "wide
+votes and queueing" and "wide votes, queueing and sort" stop it after a
+stage (timed only; with ``--against`` each is also made of the other
+source, "<name> (against)"), "wide counted" counts its survivors and
+merges a query and "wide clocked" splits its SM cycles by stage ("selection
+cut (against)" is the parent's product alone). Its merges ("merge every
+tile", "merge sites by alone"), its buffer ("tile queue of 16 / 64") and
+its bar ("no bar", "bar of 65,536
+docs at N over 4", "bar at splits of any length", "bar at N over 4", "bar
+of 8,192 / 16,384 / 32,768 docs": ``topk.bar_plan``'s keywords, the
+sample runs launched by the wrapper's own ``topk.sample_topk``) are swept
+by variants too. ``--wide`` times ``WIDE_SHAPES`` (Q=32 and 256 in f32
+and bf16 at k=100 and 256), ``--bar-sweep`` ``BAR_SWEEP`` (the same at N
+from 16,384 to 524,288: where the sample run weighs more, or there is
+none), ``--ordered`` ``ORDERED`` (k=256, N=1M, on a corpus stored topic
+by topic and on one sorted by score: ``make_corpus``); the flags add up.
 """
 
 from __future__ import annotations
@@ -70,6 +89,42 @@ SHAPES = [(1, torch.float32, K), (1, torch.bfloat16, K), (4, torch.float32, K),
 K_SWEEP = [(q, torch.float32, k) for q in (32, 256) for k in (10, 12, 14, 16, 24, 32)]
 K_SWEEP += [(q, dtype, k) for q in (1, 4) for dtype in (torch.float32, torch.bfloat16)
             for k in (10, 14, 16, 24, 32, 64, 100, 256)]
+# the Q >= 5 pass's wide selection (--wide); the same at smaller N (--bar-sweep: a
+# fourth element is N), where the bar's sample run weighs more or there is none;
+# and at k=256 on corpora stored in order (--ordered: a fifth element names it)
+WIDE_SHAPES = [(q, dtype, k) for q in (32, 256) for dtype in (torch.float32, torch.bfloat16)
+               for k in (100, 256)]
+BAR_SWEEP = [(q, dtype, k, n) for q in (32, 256) for dtype in (torch.float32, torch.bfloat16)
+             for k in (100, 256) for n in (16_384, 65_536, 131_072, 262_144, 524_288)]
+ORDERED = [(q, dtype, 256, N, corpus) for q in (32, 256)
+           for dtype in (torch.float32, torch.bfloat16) for corpus in ("topics", "sorted")]
+TOPICS = 64  # topics of the "topics" corpus
+
+
+def make_corpus(kind: str, gen: torch.Generator, dev: torch.device):
+    """N unit docs of DIM and queries {Q: (Q, DIM)} for Q = 1, 4, 32, 256.
+    "random": i.i.d. directions. "topics": TOPICS topics of N / TOPICS docs
+    each, stored topic by topic (a doc its topic's direction plus noise of
+    the same norm), each query near a random topic's direction. "sorted":
+    random docs stored by their score against one direction, ascending,
+    each query near that direction. A sample of the first docs would give
+    the last two a weak bar."""
+    docs = torch.randn(N, DIM, device=dev, generator=gen)
+    queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in (1, 4, 32, 256)}
+    if kind == "topics":
+        centers = torch.randn(TOPICS, DIM, device=dev, generator=gen)
+        centers /= centers.norm(dim=1, keepdim=True)
+        docs = centers[torch.arange(N, device=dev) * TOPICS // N] + docs / DIM ** 0.5
+        for q, x in queries.items():
+            pick = torch.randint(0, TOPICS, (q,), device=dev, generator=gen)
+            queries[q] = centers[pick] + x / DIM ** 0.5
+    elif kind == "sorted":
+        u = torch.randn(DIM, device=dev, generator=gen)
+        u /= u.norm()
+        docs = docs[torch.argsort(docs @ u / docs.norm(dim=1))]
+        queries = {q: u + 0.5 * x / DIM ** 0.5 for q, x in queries.items()}
+    docs /= docs.norm(dim=1, keepdim=True)
+    return docs, queries
 
 
 def one_full_wave(q, n, sm, per_sm):
@@ -107,7 +162,120 @@ INSERTS_COUNTED = [
      "    return n;\n}\n"),
 ]
 
-# name -> (rewrites of the source, plan)
+# the Q >= 5 wide selection by stage (warp_select; each list of rewrites
+# is one alternative: this tree's source, then the source before the bar,
+# whose selection merged every tile's survivors at once): its survivors never
+# queued (the votes alone), never sorted, or never merged. Each cut is a
+# branch on k < 0, never taken but unknown to the compiler, so the code,
+# its registers and its blocks an SM stay. Without merges the list keeps
+# the pad, so only the bar (where there is one) prunes, and a source
+# without one queues every score: there the later cuts bound the stages
+# from above, and "wide clocked" splits the real flow
+WIDE_SORT_MERGE = ("    if (n <= 32) sort_queue<1>(qv, qx, n, lane, n);\n"
+                   "    else if (n <= 64) sort_queue<2>(qv, qx, n, lane, n);\n"
+                   "    else if (n <= 128) sort_queue<4>(qv, qx, n, lane, n);\n"
+                   "    else sort_queue<8>(qv, qx, n, lane, n);\n"
+                   "    warp_merge(lv, lx, k, qv, qx, n, lane);\n}")
+PARENT_SORT_MERGE = ("        if (n <= 32) sort_queue<1>(qv, qx, n, lane);\n"
+                     "        else if (n <= 64) sort_queue<2>(qv, qx, n, lane);\n"
+                     "        else if (n <= 128) sort_queue<4>(qv, qx, n, lane);\n"
+                     "        else sort_queue<8>(qv, qx, n, lane);\n"
+                     "        warp_merge(lists_v + i * ls, lists_i + i * ls, k, qv, qx, n, lane);\n")
+WIDE_MERGE = "    warp_merge(lv, lx, k, qv, qx, n, lane);"
+PARENT_MERGE = "        warp_merge(lists_v + i * ls, lists_i + i * ls, k, qv, qx, n, lane);"
+END_SORT = ("                sort_queue<(TILE_QUEUE + 31) / 32>(buf_v + ql * bs, buf_i + ql * bs, "
+            "held[ql],\n                                                   lane, held[ql]);\n")
+END_MERGE = ("                warp_merge(list_v + ql * ls, list_i + ql * ls, k, buf_v + ql * bs,\n"
+             "                           buf_i + ql * bs, held[ql], lane);\n")
+END_FLUSH = "            if (held[ql] > 0) {\n" + END_SORT + END_MERGE + "            }\n"
+VOTES = "    const unsigned below = (1u << lane) - 1;\n    unsigned merging = 0;"
+PARENT_VOTES = "    const unsigned below = (1u << lane) - 1;\n    while (pending) {"
+NO_PENDING = "    pending &= (unsigned)(k >> 31);\n"
+WIDE_VOTES_ONLY = [[(VOTES, VOTES.replace("    unsigned merging", NO_PENDING + "    unsigned merging"))],
+                   [(PARENT_VOTES, PARENT_VOTES.replace("    while", NO_PENDING + "    while"))]]
+WIDE_SORT_CUT = [[(WIDE_SORT_MERGE, "    if (k < 0) {\n" + WIDE_SORT_MERGE[:-1] + "    }\n}"),
+                  (END_FLUSH, END_FLUSH.replace("held[ql] > 0) {", "held[ql] > 0 && k < 0) {"))],
+                 [(PARENT_SORT_MERGE, "        if (k < 0) {\n" + PARENT_SORT_MERGE + "        }\n")]]
+WIDE_MERGE_CUT = [[(WIDE_SORT_MERGE, WIDE_SORT_MERGE.replace(
+                      WIDE_MERGE, "    if (k < 0)\n    " + WIDE_MERGE)),
+                   (END_MERGE, "                if (k < 0)\n" + END_MERGE)],
+                  [(PARENT_SORT_MERGE, PARENT_SORT_MERGE.replace(
+                      PARENT_MERGE, "        if (k < 0)\n    " + PARENT_MERGE))]]
+# ... and its time by stage on the SM clock: lane 0 of each warp adds the
+# cycles of the votes (0), of the rest of warp_select and of the buffers'
+# last merges (1), and within those of the sorts (2) and the merges (3) to
+# one of 64 sets of counters, read by score_topk_wide_clocks
+CLOCK_DECL = ("constexpr unsigned FULL = 0xffffffffu;\n",
+              "constexpr unsigned FULL = 0xffffffffu;\n"
+              "__device__ unsigned long long wide_clocks[4 * 64];\n"
+              "#define WIDE_CLOCK(s, c) if (lane == 0) atomicAdd(&wide_clocks[4 * ((blockIdx.x "
+              "+ 3 * blockIdx.y + (threadIdx.x >> 5)) & 63) + (s)], "
+              "(unsigned long long)(unsigned)(clock() - (c)))\n")
+CLOCK_READ = ('extern "C" {\n',
+              'extern "C" {\n\n// The cycles of each stage counted since the last call, the counts\n'
+              "// set to 0.\n"
+              "void score_topk_wide_clocks(unsigned long long* out) {\n"
+              "    unsigned long long c[4 * 64], zero[4 * 64] = {};\n"
+              "    cudaMemcpyFromSymbol(c, wide_clocks, sizeof(c));\n"
+              "    cudaMemcpyToSymbol(wide_clocks, zero, sizeof(zero));\n"
+              "    for (int s = 0; s < 4; ++s) {\n"
+              "        out[s] = 0;\n"
+              "        for (int j = 0; j < 64; ++j) out[s] += c[4 * j + s];\n"
+              "    }\n}\n")
+VOTES_START = ("    unsigned long long pass = 0;  // bit 8 i + jj: this lane's score jj of query i "
+               "survives\n")
+CLOCK_START = (VOTES_START, VOTES_START + "    unsigned c_ = clock();\n")
+CLOCK_VOTES = "    WIDE_CLOCK(0, c_);\n    c_ = clock();\n"
+WIDE_CLOCKED = [
+    [CLOCK_DECL, CLOCK_READ, CLOCK_START, (VOTES, CLOCK_VOTES + VOTES),
+     ("        __syncwarp();\n    }\n}\n\n// score_topk_tiles with bf16",
+      "        __syncwarp();\n    }\n    WIDE_CLOCK(1, c_);\n}\n\n// score_topk_tiles with bf16"),
+     (WIDE_SORT_MERGE, "    unsigned c_ = clock();\n"
+      + WIDE_SORT_MERGE.replace(WIDE_MERGE, "    WIDE_CLOCK(2, c_);\n    c_ = clock();\n"
+                                + WIDE_MERGE + "\n    WIDE_CLOCK(3, c_);")),
+     (END_FLUSH, "            unsigned c_ = clock(), c2_ = c_;\n" + END_FLUSH.replace(
+         END_MERGE, "                WIDE_CLOCK(2, c2_);\n                c2_ = clock();\n"
+         + END_MERGE + "                WIDE_CLOCK(3, c2_);\n") + "            WIDE_CLOCK(1, c_);\n")],
+    [CLOCK_DECL, CLOCK_READ, CLOCK_START, (PARENT_VOTES, CLOCK_VOTES + PARENT_VOTES),
+     (PARENT_SORT_MERGE, "        unsigned c2_ = clock();\n" + PARENT_SORT_MERGE.replace(
+         PARENT_MERGE, "        WIDE_CLOCK(2, c2_);\n        c2_ = clock();\n" + PARENT_MERGE
+         + "\n        WIDE_CLOCK(3, c2_);")),
+     ("        warp_merge(lists_v + i * ls, lists_i + i * ls, k, qv, qx, n, lane);\n"
+      "        WIDE_CLOCK(3, c2_);\n    }\n}\n",
+      "        warp_merge(lists_v + i * ls, lists_i + i * ls, k, qv, qx, n, lane);\n"
+      "        WIDE_CLOCK(3, c2_);\n    }\n    WIDE_CLOCK(1, c_);\n}\n")],
+]
+# ... and the survivors (pairs that pass a vote) and merges of its lists,
+# counted by atomics, read by score_topk_wide_counts
+WIDE_COUNT_DECL = ("constexpr unsigned FULL = 0xffffffffu;\n",
+                   "constexpr unsigned FULL = 0xffffffffu;\n"
+                   "__device__ unsigned long long wide_survivors = 0, wide_merges = 0;\n")
+WIDE_COUNT_READ = ('extern "C" {\n',
+                   'extern "C" {\n\n// The survivors counted since the last call (and in *merges the\n'
+                   "// merges), both counts set to 0.\n"
+                   "unsigned long long score_topk_wide_counts(unsigned long long* merges) {\n"
+                   "    unsigned long long n = 0, zero = 0;\n"
+                   "    cudaMemcpyFromSymbol(&n, wide_survivors, sizeof(n));\n"
+                   "    cudaMemcpyFromSymbol(merges, wide_merges, sizeof(n));\n"
+                   "    cudaMemcpyToSymbol(wide_survivors, &zero, sizeof(zero));\n"
+                   "    cudaMemcpyToSymbol(wide_merges, &zero, sizeof(zero));\n"
+                   "    return n;\n}\n")
+COUNT_N = "        const int n = m[0] + m[1];\n        const int h = held[i];\n"  # once a tile
+PARENT_COUNT_N = "\n        const int n = m[0] + m[1];\n"
+COUNT_SURVIVORS = "        if (lane == 0) atomicAdd(&wide_survivors, (unsigned long long)n);\n"
+WIDE_COUNTED = [
+    [WIDE_COUNT_DECL, WIDE_COUNT_READ, (COUNT_N, COUNT_N + COUNT_SURVIVORS),
+     ("    warp_merge(lv, lx, k, qv, qx, n, lane);\n}",
+      "    if (lane == 0) atomicAdd(&wide_merges, 1ull);\n"
+      "    warp_merge(lv, lx, k, qv, qx, n, lane);\n}"),
+     (END_MERGE, "                if (lane == 0) atomicAdd(&wide_merges, 1ull);\n" + END_MERGE)],
+    [WIDE_COUNT_DECL, WIDE_COUNT_READ,
+     (PARENT_COUNT_N, PARENT_COUNT_N + COUNT_SURVIVORS
+      + "        if (lane == 0) atomicAdd(&wide_merges, 1ull);\n")],
+]
+
+# name -> (rewrites, plan): a list of (old, new), or a list of such lists,
+# of which the first that fits the source is taken
 VARIANTS = {
     "shipped": ([], topk.plan),
     "split count rounded down": ([], one_full_wave),
@@ -188,11 +356,69 @@ VARIANTS = {
          "if (s > 1.0e30f && doc < end && ranks_before(s, (int)doc, kth_v, kth_i))\n"
          "                mine |= 1u << jj;"),
     ], topk.plan),
+    "wide votes only": (WIDE_VOTES_ONLY, topk.plan),
+    "wide votes and queueing": (WIDE_SORT_CUT, topk.plan),
+    "wide votes, queueing and sort": (WIDE_MERGE_CUT, topk.plan),
+    "wide counted": (WIDE_COUNTED, topk.plan),
+    "wide clocked": (WIDE_CLOCKED, topk.plan),
+    # the wide selection's buffer of survivors a query, and its bar
+    "tile queue of 16": ([("constexpr int TILE_QUEUE = 32;", "constexpr int TILE_QUEUE = 16;")],
+                         topk.plan),
+    "tile queue of 64": ([("constexpr int TILE_QUEUE = 32;", "constexpr int TILE_QUEUE = 64;")],
+                         topk.plan),
+    # every tile's survivors merged at once (the buffer's code left dead), and
+    # the one sort-and-merge site split in two by where the pairs wait
+    "merge every tile": ([("        if (h + n > TILE_QUEUE) {\n            merging |= 1u << i;",
+                           "        if (h + n > 0) {\n            merging |= 1u << i;")],
+                         topk.plan),
+    "merge sites by alone": ([(
+        "        sort_merge(lv, lx, k, alone ? bv : qv, alone ? bx : qx, alone ? h : h + n, lane);",
+        "        if (alone) sort_merge(lv, lx, k, bv, bx, h, lane);\n"
+        "        else sort_merge(lv, lx, k, qv, qx, h + n, lane);")], topk.plan),
+    "no bar": ([], topk.plan),
+    "bar of 65,536 docs at N over 4": ([], topk.plan),
+    "bar at splits of any length": ([], topk.plan),
+    "bar at N over 4": ([], topk.plan),
+    "bar of 8,192 docs": ([], topk.plan),
+    "bar of 16,384 docs": ([], topk.plan),
+    "bar of 32,768 docs": ([], topk.plan),
 }
+# the bar rule of a variant (topk.bar_plan's keywords; None: no bar), where it
+# is not the shipped one; a source without score_topk_bar_launch takes none
+BAR_RULES = {"no bar": None,
+             "bar of 65,536 docs at N over 4": {"min_docs": 65_536, "min_ratio": 4,
+                                                "min_tiles": 1},
+             "bar at splits of any length": {"min_tiles": 1}, "bar at N over 4": {"min_ratio": 4},
+             "bar of 8,192 docs": {"max_docs": 8_192}, "bar of 16,384 docs": {"max_docs": 16_384},
+             "bar of 32,768 docs": {"max_docs": 32_768}}
 # variants whose output is not the function's: timed, never checked
 CUT = {"stream narrow selection cut", "stream narrow selection and end merge cut",
-       "selection cut"}
+       "selection cut", "wide votes only", "wide votes and queueing",
+       "wide votes, queueing and sort"}
+# variants made of "against"'s source too, named "<variant> (against)"
+OF_AGAINST = ("wide votes only", "wide votes and queueing", "wide votes, queueing and sort",
+              "wide counted", "wide clocked", "selection cut")
 AGAINST = "against"
+
+
+def is_cut(name: str) -> bool:
+    return name.removesuffix(f" ({AGAINST})") in CUT
+
+
+def rewrite(name: str, text: str, rewrites) -> str:
+    """``text`` with a variant's rewrites: one list of (old, new), applied
+    in order, each old found once, or the first of several such lists that
+    fits."""
+    options = rewrites if rewrites and isinstance(rewrites[0], list) else [rewrites]
+    for option in options:
+        out = text
+        for old, new in option:
+            if out.count(old) != 1:
+                break
+            out = out.replace(old, new)
+        else:
+            return out
+    raise RuntimeError(f"variant {name!r}: no rewrite fits the source once")
 
 
 def compile_variants(against=None) -> dict:
@@ -202,21 +428,28 @@ def compile_variants(against=None) -> dict:
     nvcc, procs = build.find_nvcc(), {}
     todo = {name: (rewrites, source) for name, (rewrites, _) in VARIANTS.items()}
     if against is not None:
-        todo[AGAINST] = ([], (Path(against) / "twotowers_tpu_torch" / "csrc"
-                              / "score_topk.cu").read_text())
+        theirs = (Path(against) / "twotowers_tpu_torch" / "csrc" / "score_topk.cu").read_text()
+        todo[AGAINST] = ([], theirs)
+        for name in OF_AGAINST:
+            if name in VARIANTS:
+                todo[f"{name} ({AGAINST})"] = (VARIANTS[name][0], theirs)
+    built = {}  # source text -> the variant that builds it: one nvcc a text
     for name, (rewrites, text) in todo.items():
-        for old, new in rewrites:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in the source once")
-            text = text.replace(old, new)
+        text = rewrite(name, text, rewrites)
+        if text in built:
+            procs[name] = procs[built[text]]
+            continue
+        built[text] = name
         tag = re.sub(r"\W+", "_", name)
         src, lib = OUT_DIR / f"{tag}.cu", OUT_DIR / f"lib{tag}.so"
         src.write_text(text)
         procs[name] = (lib, subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-o", str(lib), str(src)],
                                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs = {}
+    libs, outs = {}, {}
     for name, (lib, proc) in procs.items():
-        out = proc.communicate()[0].decode(errors="replace")
+        if proc not in outs:
+            outs[proc] = proc.communicate()[0].decode(errors="replace")
+        out = outs[proc]
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name!r} did not build:\n{out[-2000:]}")
         lines = out.splitlines()
@@ -231,7 +464,9 @@ def compile_variants(against=None) -> dict:
 def sass_kernels(lib: Path) -> dict:
     """Each kernel's SASS instructions in ``lib`` (``cuobjdump -sass``;
     addresses and encodings left out), by its mangled name from
-    ``score_topk_`` on, which two builds of the source share."""
+    ``score_topk_`` to its parameter list (the template arguments kept),
+    which two builds of the source share even where one kernel takes more
+    parameters."""
     nvcc = Path(build.find_nvcc())
     sass = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
@@ -239,7 +474,9 @@ def sass_kernels(lib: Path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"score_topk_\w+", line)
-            current = kernels.setdefault(m.group(0), []) if m else None
+            name = m and (m.group(0).split("EEEv")[0] if "EEEv" in m.group(0)
+                          else m.group(0).split("E")[0])
+            current = kernels.setdefault(name, []) if m else None
         elif current is not None:
             m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
             if m:
@@ -280,14 +517,26 @@ def clocks_while(fn, seconds: float = 4.0) -> dict:
             "max_sm_mhz": busy[0][1], "power_w": statistics.median(r[2] for r in busy)}
 
 
-def launcher(lib: ctypes.CDLL, plan):
-    """score_topk_cuda's launch through ``lib`` under ``plan``."""
+def launcher(lib: ctypes.CDLL, plan, bar_rule=None):
+    """score_topk_cuda's launch through ``lib`` under ``plan``, barred by
+    sample runs where ``topk.bar_plan(**bar_rule)`` says so (``bar_rule``
+    None, or a source without ``score_topk_bar_launch``: never), through
+    the wrapper's own ``topk.sample_topk``."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     tree = hasattr(lib, "score_topk_merge_launch")  # else pass 2 takes no group
-    lib.score_topk_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64, i32,
-                                      ptr, ptr, ptr, ptr] + [i32] * tree + [ptr]
+    barred = hasattr(lib, "score_topk_bar_launch")  # else score_topk_launch, no bar
+    if barred:
+        lib.score_topk_bar_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64,
+                                              i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, i64, i64,
+                                              ptr]
+    else:
+        lib.score_topk_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64,
+                                          i32, ptr, ptr, ptr, ptr] + [i32] * tree + [ptr]
     if hasattr(lib, "score_topk_stream_inserts"):
         lib.score_topk_stream_inserts.restype = ctypes.c_ulonglong
+    if hasattr(lib, "score_topk_wide_counts"):
+        lib.score_topk_wide_counts.restype = ctypes.c_ulonglong
+        lib.score_topk_wide_counts.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     occupancy = {}
 
     def per_sm(dtype, q, k=K):
@@ -317,18 +566,30 @@ def launcher(lib: ctypes.CDLL, plan):
         n, dim = docs.shape
         q = queries.shape[0]
         rows, n_splits, split_len = plan_of(q, docs.dtype, k, n)
-        cand_v = torch.empty((q, n_splits, k), dtype=torch.float32, device=docs.device)
-        cand_i = torch.empty((q, n_splits, k), dtype=torch.int32, device=docs.device)
-        out_v = torch.empty((q, k), dtype=torch.float32, device=docs.device)
-        out_i = torch.empty((q, k), dtype=torch.int32, device=docs.device)
-        group = [topk.merge_plan(n_splits, k)[0]] if tree else []
-        err = lib.score_topk_launch(
-            docs.data_ptr(), queries.data_ptr(), int(docs.dtype == torch.bfloat16), n, q, dim,
-            k, n, n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), *group, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed: cudaError_t {err}")
-        return out_v, out_i
+
+        def launch(n_splits, split_len, split_docs, bar):
+            cand_v = torch.empty((q, n_splits, k), dtype=torch.float32, device=docs.device)
+            cand_i = torch.empty((q, n_splits, k), dtype=torch.int32, device=docs.device)
+            out_v = torch.empty((q, k), dtype=torch.float32, device=docs.device)
+            out_i = torch.empty((q, k), dtype=torch.int32, device=docs.device)
+            group = [topk.merge_plan(n_splits, k)[0]] if tree else []
+            extra = []
+            if barred:
+                extra = [None, None, 0, split_docs] if bar is None else [
+                    bar[0].data_ptr(), bar[1].data_ptr(), bar[0].stride(0), split_docs]
+            err = (lib.score_topk_bar_launch if barred else lib.score_topk_launch)(
+                docs.data_ptr(), queries.data_ptr(), int(docs.dtype == torch.bfloat16), n, q,
+                dim, k, n, n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
+                out_v.data_ptr(), out_i.data_ptr(), *group, *extra,
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed: cudaError_t {err}")
+            return out_v, out_i
+
+        top = None
+        if barred and bar_rule is not None:
+            top = topk.sample_topk(launch, q, k, n, n_splits, split_len, split_len, **bar_rule)
+        return launch(n_splits, split_len, split_len, topk.kth(top, k))
 
     run.lib, run.plan_of = lib, plan_of
     return run, per_sm
@@ -377,9 +638,18 @@ def main() -> int:
     parser.add_argument("--against", help="root of another checkout whose kernel to time too")
     parser.add_argument("--only", nargs="*", help="the variants to keep (default: all)")
     parser.add_argument("--k-sweep", action="store_true",
-                        help="time K_SWEEP (Q >= 5 at k = 10 to 32) instead of SHAPES")
+                        help="time K_SWEEP (Q >= 5 at k = 10 to 32) in place of SHAPES")
+    parser.add_argument("--wide", action="store_true",
+                        help="time WIDE_SHAPES (Q=32 and 256 at k=100 and 256)")
+    parser.add_argument("--bar-sweep", action="store_true",
+                        help="time BAR_SWEEP (the same at N from 16,384 to 524,288)")
+    parser.add_argument("--ordered", action="store_true",
+                        help="time ORDERED (Q=32 and 256 at k=256 on corpora stored in order)")
     args = parser.parse_args()
-    shapes = K_SWEEP if args.k_sweep else SHAPES
+    shapes = ((K_SWEEP if args.k_sweep else []) + (WIDE_SHAPES if args.wide else [])
+              + (BAR_SWEEP if args.bar_sweep else []) + (ORDERED if args.ordered else []))
+    shapes = [(*shape, N, "random")[:5] if len(shape) < 4 else (*shape, "random")[:5]
+              for shape in shapes or SHAPES]  # (q, dtype, k, n, corpus)
     if not torch.cuda.is_available():
         raise SystemExit("topk_variants: needs a CUDA card")
     if args.only:
@@ -389,13 +659,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     runs, libs = {}, compile_variants(args.against)
     for name, (lib, ptxas, _) in libs.items():
-        run, per_sm = launcher(lib, VARIANTS[name][1] if name in VARIANTS else topk.plan)
+        run, per_sm = launcher(lib, VARIANTS[name][1] if name in VARIANTS else topk.plan,
+                               BAR_RULES.get(name, {}))
         ints = torch.randint(-2, 3, (100_003, 128), device=dev, generator=gen).float()
         qints = torch.randint(-2, 3, (257, 128), device=dev, generator=gen).float()
         for dtype in (torch.float32, torch.bfloat16):
             for q, k in ((1, K), (4, K), (257, K), (1, 256), (4, 256), (1, 100), (2, 33),
                          (3, 64), (257, 256), (33, 100), (5, 33)):
-                if name in CUT:
+                if is_cut(name):
                     break
                 got = run(ints.to(dtype), qints[:q].to(dtype), k)
                 want = score_topk_reference(ints.to(dtype), qints[:q], k)
@@ -405,23 +676,32 @@ def main() -> int:
         runs[name] = (run, {"ptxas": ptxas, "occupancy_f32_bf16": {
             f"q{q} k{k}": [per_sm(torch.float32, q, k), per_sm(torch.bfloat16, q, k)]
             for q, k in ((1, K), (4, K), (1, 256), (4, 256), (5, K), (5, 256))}})
-    docs = torch.randn(N, DIM, device=dev, generator=gen)
-    docs /= docs.norm(dim=1, keepdim=True)
-    inputs = {dtype: docs.to(dtype) for dtype in (torch.float32, torch.bfloat16)}
-    queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in (1, 4, 32, 256)}
-    label = lambda q, dtype, k: f"q{q} {dtype} k{k}"  # noqa: E731
+    inputs, queries = {}, {}
+    for kind in dict.fromkeys(["random"] + [shape[4] for shape in shapes]):
+        docs, queries[kind] = make_corpus(kind, gen, dev)
+        inputs[kind] = {dtype: docs.to(dtype) for dtype in (torch.float32, torch.bfloat16)}
+    del docs
+
+    def label(q, dtype, k, n, corpus="random"):
+        return (f"q{q} {dtype} k{k}" + (f" n{n}" if n != N else "")
+                + (f" {corpus}" if corpus != "random" else ""))
+
+    def args_of(q, dtype, k, n, corpus="random"):
+        return inputs[corpus][dtype][:n], queries[corpus][q].to(dtype), k
+
     if AGAINST in runs:  # the shipped kernel's output is "against"'s
         same, held = {}, {}
-        for q, dtype, k in shapes:
-            d, qs = inputs[dtype], queries[q].to(dtype)
+        for shape in shapes:
+            d, qs, k = args_of(*shape)
             got, want = runs["shipped"][0](d, qs, k), runs[AGAINST][0](d, qs, k)
-            if dtype == torch.bfloat16 and q > 4:  # the tensor cores' summation order
+            bits = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                    and torch.equal(got[1], want[1]))
+            if d.dtype == torch.bfloat16 and qs.shape[0] > 4:  # a parent may sum on CUDA cores
                 err, swaps = topk.agree(d, qs, got, want)
-                held[label(q, dtype, k)] = {"max_abs_err": err, "near_tie_swaps": swaps}
+                held[label(*shape)] = {"max_abs_err": err, "near_tie_swaps": swaps,
+                                       "bit_equal": bits}
                 continue
-            same[label(q, dtype, k)] = (torch.equal(got[0].view(torch.int32),
-                                                    want[0].view(torch.int32))
-                                        and torch.equal(got[1], want[1]))
+            same[label(*shape)] = bits
         print(json.dumps({"bit_equal_to_against": same, "agree_with_against": held}),
               flush=True)
         if not all(same.values()):
@@ -433,28 +713,59 @@ def main() -> int:
     order = list(runs) + list(runs)[::-1]
     times = {name: {label(*shape): [] for shape in shapes} for name in runs}
     for name in order:
-        for q, dtype, k in shapes:
-            d, qs = inputs[dtype], queries[q].to(dtype)
-            times[name][label(q, dtype, k)].append(event_ms(lambda: runs[name][0](d, qs, k)))
+        for shape in shapes:
+            d, qs, k = args_of(*shape)
+            times[name][label(*shape)].append(event_ms(lambda: runs[name][0](d, qs, k)))
     for name, (run, info) in runs.items():
         ms = {shape: sum(t) / len(t) for shape, t in times[name].items()}
         if name in ("shipped", AGAINST):  # pass 1 and each level of pass 2 apart
             info["device_ms_by_kernel"] = {
-                label(q, dtype, k): device_ms_by_kernel(
-                    lambda: run(inputs[dtype], queries[q].to(dtype), k))
-                for q, dtype, k in shapes}
+                label(*shape): device_ms_by_kernel(lambda: run(*args_of(*shape)))
+                for shape in shapes}
         if hasattr(run.lib, "score_topk_stream_inserts"):  # a warp's inserts a query
             info["inserts_per_warp_and_query"] = {}
-            for q, dtype, k in shapes:
+            for q, dtype, k, n, corpus in shapes:
                 if q > 4:
                     continue
                 run.lib.score_topk_stream_inserts()
-                run(inputs[dtype], queries[q].to(dtype), k)
+                run(*args_of(q, dtype, k, n, corpus))
                 torch.cuda.synchronize()
-                n_splits = run.plan_of(q, dtype, k)[1]
-                info["inserts_per_warp_and_query"][label(q, dtype, k)] = (
+                n_splits = run.plan_of(q, dtype, k, n)[1]
+                info["inserts_per_warp_and_query"][label(q, dtype, k, n, corpus)] = (
                     run.lib.score_topk_stream_inserts() / (n_splits * 8 * q))
-        print(json.dumps({"variant": name, "ms": ms, "turns": times[name], "cut": name in CUT,
+        if hasattr(run.lib, "score_topk_wide_counts"):  # survivors and merges a query
+            info["wide_counts_per_query"] = {}
+            for q, dtype, k, n, corpus in shapes:
+                if q <= 4 or k <= topk.WIDE_K:
+                    continue
+                merges = ctypes.c_ulonglong()
+                run.lib.score_topk_wide_counts(ctypes.byref(merges))
+                run(*args_of(q, dtype, k, n, corpus))
+                torch.cuda.synchronize()
+                survivors = run.lib.score_topk_wide_counts(ctypes.byref(merges))
+                n_splits = run.plan_of(q, dtype, k, n)[1]
+                info["wide_counts_per_query"][label(q, dtype, k, n, corpus)] = {
+                    "survivors": survivors / q, "merges": merges.value / q,
+                    "survivors_per_split": survivors / (q * n_splits),
+                    "merges_per_split": merges.value / (q * n_splits), "n_splits": n_splits}
+        if hasattr(run.lib, "score_topk_wide_clocks"):  # SM cycles by stage
+            info["wide_clocks"] = {}
+            clocks = (ctypes.c_ulonglong * 4)()
+            for q, dtype, k, n, corpus in shapes:
+                if q <= 4 or k <= topk.WIDE_K:
+                    continue
+                run.lib.score_topk_wide_clocks(clocks)
+                run(*args_of(q, dtype, k, n, corpus))
+                torch.cuda.synchronize()
+                run.lib.score_topk_wide_clocks(clocks)
+                votes, rest, sort, merge = list(clocks)
+                info["wide_clocks"][label(q, dtype, k, n, corpus)] = {
+                    "votes": votes, "queueing": rest - sort - merge, "sort": sort,
+                    "merge": merge, "share": {
+                        "votes": votes / (votes + rest), "queueing": (rest - sort - merge)
+                        / (votes + rest), "sort": sort / (votes + rest),
+                        "merge": merge / (votes + rest)}}
+        print(json.dumps({"variant": name, "ms": ms, "turns": times[name], "cut": is_cut(name),
                           **info}), flush=True)
     shipped_sass = sass_kernels(libs["shipped"][2])
     for kernel in ("score_topk_tilesIfLb0", "score_topk_tilesIfLb1",
@@ -468,9 +779,15 @@ def main() -> int:
             if hmma == 0 or ffma >= hmma:
                 raise AssertionError(f"{kernel}: {hmma} HMMA, {ffma} FFMA")
     for q in (256, 1):
-        d, qs = inputs[torch.float32], queries[q]
+        d, qs = inputs["random"][torch.float32], queries["random"][q]
         print(json.dumps({f"clocks shipped q{q} f32":
                           clocks_while(lambda: runs["shipped"][0](d, qs))}), flush=True)
+    # the yardstick: one PyTorch call for the same function on the same inputs
+    library = {}
+    for shape in shapes:
+        d, qs, k = args_of(*shape)
+        library[label(*shape)] = event_ms(lambda: torch.topk(qs @ d.T, k))
+    print(json.dumps({"library_ms": library}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     return 0
