@@ -18,8 +18,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               the batch's; Q >= 5 at k=256: bf16, Q=257, all scores tied,
               n_docs < N; the bf16 tensor-core pass on integer-valued
               inputs bit-equal at Q=64, k=32 and Q=257, k=256, and on
-              float inputs at Q=257, D=1024, k=10 and 256), then pass 1
-              alone (``score_topk_candidates``)
+              float inputs at Q=257, D=1024, k=10 and 256; the bf16
+              Q = 2-4 pass on the tensor cores, ``score_topk_stream_mma``,
+              at k=10, 100 and 256, ragged N, n_docs < N, integer-valued
+              inputs bit-equal, two calls the same bits, its pass 1 alone
+              bit-equal to the plain per-split top-k, docs off 16-byte
+              alignment or at D=100 on ``score_topk_stream`` by the route
+              rule, and that path, ``score_topk`` on bf16 docs at Q = 2-4,
+              driven with its launch counts zeroed before and read after),
+              then pass 1 alone (``score_topk_candidates``)
               at Q=32, k=256 bit-equal to the plain per-split top-k
               (``candidates_reference``) on integer-valued inputs, and
               barred by a sample run's k-th pairs (the Q >= 5 wide
@@ -291,11 +298,14 @@ def pass2_ms(by_kernel: dict) -> float:
 
 
 def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
+    from twotowers_tpu_torch.kernels import topk
     from twotowers_tpu_torch.kernels.topk import (
-        NO_INDEX, STREAM_WIDE_K, WIDE_K, candidates_reference, kth, merge_occupancy, merge_plan,
-        merge_topk_cuda, merge_topk_reference, plan, score_topk_candidates, score_topk_cuda,
-        score_topk_sample, stream_occupancy, stream_smem, tiles_occupancy, tiles_smem)
-    from twotowers_tpu_torch.ops.topk_score import score_topk_reference
+        NO_INDEX, STREAM_MMA_STAGE_BYTES, STREAM_MMA_STAGES, STREAM_WARPS,
+        STREAM_WIDE_K, WIDE_K, call_plan, candidates_reference, kth, merge_occupancy,
+        merge_plan, merge_topk_cuda, merge_topk_reference, plan, score_topk_candidates,
+        score_topk_cuda, score_topk_sample, stream_mma_occupancy, stream_mma_smem,
+        stream_occupancy, stream_smem, tiles_occupancy, tiles_smem)
+    from twotowers_tpu_torch.ops.topk_score import score_topk, score_topk_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -332,14 +342,40 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                     or block["smem_bytes"] != stream_smem(q, 128, k)):
                 raise AssertionError(f"Q <= 4 pass 1 at Q={q}, k={k}: spills, too few blocks "
                                      f"per SM or not topk.stream_smem's bytes: {block}")
+    # bf16 docs at Q = 2-4 take score_topk_stream_mma (the tensor cores): each
+    # warp keeps STREAM_MMA_STAGES - 1 stages of 4 KB in flight in its own
+    # cp.async ring, where the card needs ~18 KB an SM; no spills, a block an
+    # SM, topk.stream_mma_smem's bytes
+    mma_blocks = {}
+    for q in (2, 3, 4):
+        for k in (10, 256):
+            block = {**stream_mma_occupancy(dev, q, 128, k), "selection": "wide",
+                     "engine": "mma.sync m16n8k16 bf16"}
+            block["in_flight_bytes_per_sm"] = (block["blocks_per_sm"] * STREAM_WARPS
+                                               * (STREAM_MMA_STAGES - 1) * STREAM_MMA_STAGE_BYTES)
+            mma_blocks[f"q{q} k{k}"] = block
+            emit("kernels", case="Q <= 4 pass-1 block", kernel="score_topk_stream_mma",
+                 dtype="torch.bfloat16", q=q, d=128, k=k, **block)
+            if (block["local_bytes"] or block["blocks_per_sm"] < 1
+                    or block["smem_bytes"] != stream_mma_smem(q, 128, k)
+                    or block["in_flight_bytes_per_sm"] < 18 * 1024):
+                raise AssertionError(f"bf16 Q <= 4 pass 1 at Q={q}, k={k}: spills, no block an "
+                                     "SM, not topk.stream_mma_smem's bytes or under 18 KB in "
+                                     f"flight: {block}")
 
     def unit(*shape):
         x = torch.randn(*shape, device=dev, generator=gen)
         return x / x.norm(dim=1, keepdim=True)
 
-    def check(case, docs, queries, k, n_real=None, exact=False):
+    def check(case, docs, queries, k, n_real=None, exact=False, mma=None):
+        """Hold score_topk_cuda against the plain version; ``mma``: whether
+        pass 1 must (True) or must not (False) take score_topk_stream_mma."""
+        before = topk.STREAM_MMA_LAUNCHES
         got = score_topk_cuda(docs, queries, k, n_real)
         torch.cuda.synchronize()
+        if mma is not None and topk.STREAM_MMA_LAUNCHES - before != int(mma):
+            raise AssertionError(f"{case}: pass 1 {'did not take' if mma else 'took'} "
+                                 "score_topk_stream_mma")
         want = score_topk_reference(docs, queries, k, n_real)
         err, swaps = agree(docs, queries, got, want, n_real, rel=0.0 if exact else 1e-5)
         if exact and not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
@@ -443,6 +479,61 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
             raise AssertionError(f"zero scores of either sign at Q={q} must tie by index")
     check("split shorter than k q1 k=256", docs[:1000], queries[1], 256)
     check("n_docs < N q1 k=256", padded, queries[1], 256, n_real=5000)
+    # bf16 docs at Q = 2-4 on the tensor cores (score_topk_stream_mma): float
+    # docs by agree, ragged N, rows past n_docs, integer-valued docs bit-equal
+    # (exact sums in any order), the same bits from two calls; off 16-byte
+    # alignment (a view one element in, or D=100) score_topk_stream by the
+    # route rule (topk.stream_mma_takes), bit-equal on integers
+    ints_bf16 = ints.bfloat16()
+    flat = ints_bf16.view(-1)
+    ints_off = flat[1:1 + (ints.shape[0] - 1) * 64].view(-1, 64)  # 2 bytes past alignment
+    for q in (2, 3):
+        queries[q] = unit(q, 128)
+    for q in (2, 3, 4):
+        for k in (10, 100, 256):
+            check(f"tensor-core stream q{q} k={k} bf16", docs_bf16, queries[q], k, mma=True)
+        check(f"tensor-core stream ragged n q{q} bf16", docs_bf16[:ragged], queries[q], 256,
+              mma=True)
+        check(f"tensor-core stream n_docs < N q{q} bf16", padded.bfloat16(), queries[q], 10,
+              n_real=5000, mma=True)
+        for k in (10, 256):
+            check(f"tensor-core stream integer-valued q{q} k={k} bf16", ints_bf16, qints[:q], k,
+                  exact=True, mma=True)
+            check(f"off alignment q{q} k={k} bf16 (score_topk_stream)", ints_off, qints[:q], k,
+                  exact=True, mma=False)
+        once, twice = (score_topk_cuda(docs_bf16, queries[q], 256) for _ in range(2))
+        if not (torch.equal(once[0].view(torch.int32), twice[0].view(torch.int32))
+                and torch.equal(once[1], twice[1])):
+            raise AssertionError(f"tensor-core stream q{q}: two calls gave other bits")
+    check("d100 q3 bf16 (score_topk_stream)", unit(4096, 100).bfloat16(), unit(3, 100), 10,
+          mma=False)
+    del ints_off, flat
+    # pass 1 alone on the tensor cores: each split's lists bit for bit the
+    # plain per-split top-k under the call's plan (integer-valued)
+    for q, k in ((2, 10), (4, 256)):
+        got = score_topk_candidates(ints_bf16, qints[:q], k, 240_000)
+        pass1, _, split_len = call_plan(ints_bf16, q, k)
+        want = candidates_reference(ints_bf16, qints[:q], k, split_len, 240_000)
+        if pass1 != topk.PASS_STREAM_MMA or not (
+                torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"tensor-core stream pass 1 q{q} k{k}: not the plain "
+                                 "per-split top-k")
+        emit("kernels", case=f"tensor-core stream pass-1 lists q{q} k{k}", n=ints.shape[0],
+             d=64, n_splits=got[0].shape[1], split_len=split_len, bit_equal=True)
+
+    # the bf16 small-batch path (a caller's score_topk against a bf16 index
+    # at Q = 2-4): the counts zeroed just before it and read just after
+    topk.LAUNCHES = topk.STREAM_MMA_LAUNCHES = 0  # the path starts here
+    small = {(q, k): score_topk(docs_bf16, queries[q], k) for q in (2, 3, 4) for k in (10, 256)}
+    torch.cuda.synchronize()
+    small_launches = {"score_topk": topk.LAUNCHES,
+                      "score_topk_stream_mma": topk.STREAM_MMA_LAUNCHES}  # the path ends here
+    emit("kernels", case="bf16 small-batch path", launches=small_launches)
+    if small_launches != {"score_topk": len(small), "score_topk_stream_mma": len(small)}:
+        raise AssertionError(f"bf16 Q = 2-4 searches: {small_launches}")
+    for (q, k), got in small.items():
+        agree(docs_bf16, queries[q], got, score_topk_reference(docs_bf16, queries[q], k))
 
     # pass 1 alone: the Q >= 5 pass's lists at Q=32, k=256 against the plain
     # per-split top-k under the same plan, bit for bit (integer-valued)
@@ -566,7 +657,9 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                           (32, torch.float32, 256), (256, torch.float32, 256),
                           (32, torch.bfloat16, 256), (256, torch.bfloat16, 256),
                           (32, torch.float32, 100), (4, torch.float32, 256),
-                          (4, torch.bfloat16, 256), (1, torch.float32, 100)]:
+                          (4, torch.bfloat16, 256), (1, torch.float32, 100),
+                          (2, torch.bfloat16, 10), (3, torch.bfloat16, 10),
+                          (2, torch.bfloat16, 256), (3, torch.bfloat16, 256)]:
         d = docs if dtype == torch.float32 else docs_bf16
         qs = queries[q]
         bound, bound_by = topk_bound(n_docs, 128, q, k, dtype)
@@ -605,7 +698,10 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
             "batch_bf16": {f"q{q} k{k}": timings[(q, torch.bfloat16, k)]
                            for q in (32, 256) for k in (10, 256)},
             "tiles_blocks": tiles_blocks, "stream_blocks": stream_blocks,
-            "merge_blocks": merge_blocks,
+            "merge_blocks": merge_blocks, "stream_mma_blocks": mma_blocks,
+            "stream_bf16": {f"q{q} k{k}": timings[(q, torch.bfloat16, k)]
+                            for q in (2, 3, 4) for k in (10, 256)},
+            "small_batch_launches": small_launches,
             "torch_route": torch_route_rows(card, docs_bf16, queries[32], gen)}
 
 
@@ -2574,6 +2670,17 @@ def main() -> int:
             "pass1_blocks": topk_row["tiles_blocks"]["torch.bfloat16"],
             "check": "integer-valued bit-equal at Q=64 k=32 and Q=257 k=256; float at "
                      "Q=257 D=1024 k=10 and 256 within the tolerance above",
+            "shape": {"n": args.n_docs, "d": 128, "dtype": "bfloat16"}},
+        "stream_bf16_tensor_cores": {**{name: {key: row[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + (
+            ("pass1_ms", "pass2_ms") if "pass1_ms" in row else ())}
+            for name, row in topk_row["stream_bf16"].items()},
+            "engine": "mma.sync m16n8k16 bf16 -> f32 (score_topk_stream_mma<NQ>)",
+            "pass1_blocks": topk_row["stream_mma_blocks"],
+            "launches_bf16_small_batch": topk_row["small_batch_launches"],
+            "check": "float docs by agree at Q=2-4, k=10, 100, 256 and ragged N; "
+                     "integer-valued bit-equal; two calls the same bits; off 16-byte "
+                     "alignment on score_topk_stream",
             "shape": {"n": args.n_docs, "d": 128, "dtype": "bfloat16"}},
         "pretrained_search_cli": pretrained["search_cli"], "pretrained_glove": pretrained["glove"],
         "card": card["nvidia_smi"],

@@ -335,3 +335,23 @@ def test_barred_composition_is_the_topk(kind, k, n_docs, split_len):
     if kind == "tied":  # the bar is doc k-1: the first k docs, in order
         assert bool((bar[1] == k - 1).all())
         np.testing.assert_array_equal(got_i.numpy(), np.tile(np.arange(k), (6, 1)))
+
+
+@pytest.mark.parametrize("q", [2, 3, 4])
+@pytest.mark.parametrize("k", [10, 256])
+def test_bf16_docs_at_two_to_four_queries_match_jax(q, k):
+    """The shapes of the bf16 Q = 2-4 pass on the tensor cores
+    (``score_topk_stream_mma``; on the CPU its plain version): bf16 docs,
+    N = 640, D = 128, inputs from a numpy seed, queries already
+    bf16-representable so that the Pallas kernel's cast and
+    ``score_topk_xla``'s unrounded product agree. Scores within rtol 1e-5
+    (f32 sums in another order), indices exactly, against both."""
+    rng = np.random.default_rng(100 * q + k)
+    docs = torch.from_numpy(rng.normal(size=(640, 128)).astype(np.float32)).bfloat16()
+    queries = torch.from_numpy(rng.normal(size=(q, 128)).astype(np.float32)).bfloat16().float()
+    got = score_topk(docs, queries, k)
+    assert got[0].shape == got[1].shape == (q, k)
+    d = jnp.asarray(docs.float().numpy(), jnp.bfloat16)
+    qj = jnp.asarray(queries.numpy())
+    _assert_same(got, score_topk_pallas(d, qj, k, tile_n=128, interpret=True), "pallas")
+    _assert_same(got, score_topk_xla(d, qj, k), "xla")

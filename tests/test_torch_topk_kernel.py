@@ -204,7 +204,7 @@ def test_stream_smem_fits_a_block_at_every_width(q, k):
 
 
 CONSTANTS = ["STREAM_WIDE_K", "WIDE_K", "STREAM_QUEUE", "STREAM_WARPS", "MAX_K",
-             "MAX_SPLITS", "MMA_DEPTH", "TILE_QUEUE"]
+             "MAX_SPLITS", "MMA_DEPTH", "TILE_QUEUE", "STREAM_MMA_STAGES", "STREAM_MMA_DEPTH"]
 
 
 @pytest.mark.parametrize("name", CONSTANTS)
@@ -292,6 +292,197 @@ def test_mma_stage_layout_is_free_of_bank_conflicts():
                         == 64 * _doc_slot(_mma_doc(m, 0)))
     for e0 in range(0, 1024, 8):
         assert len({at(e // 4, e % 4) // 16 % 8 for e in range(e0, e0 + 8)}) == 8
+
+
+def test_pass_codes_mirror_the_cuda_source():
+    """score_topk_bar_launch's pass1 codes: the wrapper's are the source's."""
+    source = (Path(topk.__file__).resolve().parents[1] / "csrc" / "score_topk.cu").read_text()
+    assert ("constexpr int PASS_STREAM = 1, PASS_STREAM_MMA = 2, PASS_TILES = 8;" in source)
+    assert (topk.PASS_STREAM, topk.PASS_STREAM_MMA, topk.PASS_TILES) == (1, 2, 8)
+
+
+@pytest.mark.parametrize("q,dim,k,nbytes", [
+    (2, 128, 10, 141_504), (4, 128, 10, 151_936), (4, 128, 256, 216_704),
+    (3, 1024, 256, 200_672), (4, 1024, 256, 223_872), (2, 72, 100, 153_408),
+    (3, 8, 11, 146_528)])
+def test_stream_mma_smem_counts_rings_queries_and_lists(q, dim, k, nbytes):
+    """The bf16 Q = 2-4 pass's shared bytes (score_topk.cu's
+    stream_mma_smem): 8 warps x 4 stages x 4,096 bytes of ring (131,072),
+    the queries' bf16 rows of D rounded up to 64, plus 16 elements, then the
+    wide selection's skewed lists and queues at every k: 131,072 + 2 x 4 x
+    144 + 8 x 32 x (264 + 66) at Q=4, k=256, D=128."""
+    assert topk.STREAM_MMA_STAGE_BYTES == 32 * 64 * 2
+    assert topk.stream_mma_smem(q, dim, k) == nbytes
+    assert nbytes <= BLOCK_SHARED_MAX
+
+
+@pytest.mark.parametrize("q", [2, 3, 4])
+@pytest.mark.parametrize("k", [1, 10, 11, 100, 256])
+def test_stream_mma_block_fits_and_keeps_bytes_in_flight(q, k):
+    """Every bf16 Q = 2-4 block fits the 227 KB a block may take at D up
+    to 1024, one block an SM (two would not fit), and its rings keep 8
+    warps x 3 stages x 4 KB = 96 KB in flight an SM, over the ~18 KB the
+    card needs (0.7 us x 3.35 TB/s / 132 SMs)."""
+    assert topk.stream_mma_smem(q, topk.MAX_DIM, k) <= BLOCK_SHARED_MAX
+    assert 2 * (topk.stream_mma_smem(q, 8, k) + BLOCK_RESERVED) > SM_SHARED
+    in_flight = topk.STREAM_WARPS * (topk.STREAM_MMA_STAGES - 1) * topk.STREAM_MMA_STAGE_BYTES
+    assert in_flight == 98_304 >= 0.7e-6 * 3.35e12 / 132
+
+
+ALIGNED = 4096  # a data_ptr on a 16-byte boundary
+
+
+@pytest.mark.parametrize("dtype,q,dim,ptr,takes", [
+    (torch.bfloat16, 2, 128, ALIGNED, True), (torch.bfloat16, 3, 128, ALIGNED, True),
+    (torch.bfloat16, 4, 128, ALIGNED, True), (torch.bfloat16, 4, 1024, ALIGNED, True),
+    (torch.bfloat16, 2, 8, ALIGNED, True), (torch.bfloat16, 3, 72, ALIGNED, True),
+    (torch.bfloat16, 1, 128, ALIGNED, False), (torch.bfloat16, 5, 128, ALIGNED, False),
+    (torch.float32, 4, 128, ALIGNED, False), (torch.float32, 2, 128, ALIGNED, False),
+    (torch.bfloat16, 4, 100, ALIGNED, False), (torch.bfloat16, 2, 1, ALIGNED, False),
+    (torch.bfloat16, 4, 128, ALIGNED + 2, False), (torch.bfloat16, 3, 128, ALIGNED + 8, False)])
+def test_route_rule_sends_aligned_bf16_at_two_to_four_queries_to_the_tensor_cores(
+        dtype, q, dim, ptr, takes):
+    """kernels/topk.py's route rule for the Q <= 4 pass: bf16 docs at Q =
+    2-4 whose D is a multiple of 8 and whose pointer is 16-byte aligned go
+    to score_topk_stream_mma; f32, Q = 1, Q >= 5 (the batch pass) and docs
+    off alignment stay on score_topk_stream (or score_topk_tiles)."""
+    assert topk.stream_mma_takes(dtype, q, dim, ptr) is takes
+
+
+def test_route_rule_reads_the_views_pointer():
+    """A view one element into bf16 storage is off 16-byte alignment and
+    leaves the tensor-core pass, though its D is a multiple of 8."""
+    storage = torch.zeros(65 * 128, dtype=torch.bfloat16)
+    docs, off = storage[:64 * 128].view(64, 128), storage[1:1 + 64 * 128].view(64, 128)
+    assert docs.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 2
+    assert topk.stream_mma_takes(docs.dtype, 3, 128, docs.data_ptr())
+    assert not topk.stream_mma_takes(off.dtype, 3, 128, off.data_ptr())
+
+
+@pytest.mark.parametrize("q", [2, 3, 4])
+@pytest.mark.parametrize("n", [1_000_000, 999_983])
+def test_plan_of_the_tensor_core_stream_makes_one_wave(q, n):
+    """One block an SM (stream_mma_occupancy) gives about 132 splits of a
+    whole number of STREAM_ROWS docs at 1M docs: one wave, within 3%."""
+    rows, n_splits, split_len = topk.plan(q, n, 132, 1)
+    assert rows == 1 and split_len % topk.STREAM_ROWS == 0
+    assert (n_splits - 1) * split_len < n <= n_splits * split_len
+    assert 0.97 * 132 <= n_splits <= 132
+
+
+def _step_doc(m, r):  # score_topk.cu:step_doc, the step doc that row r of M-tile m multiplies
+    return 4 * (r & 7) + 2 * m + (r >> 3)
+
+
+def _step_unit(d, u):  # score_topk.cu:step_unit, byte offset of unit u of step doc d
+    return d * 128 + ((u ^ ((d >> 2) & 7)) << 4)
+
+
+def test_stream_mma_stage_layout_is_free_of_bank_conflicts():
+    """A stage of score_topk_stream_mma: 32 docs x 8 units of 16 bytes,
+    unit u of doc d at byte 128 d + 16 (u ^ (d / 4) % 8). Each ldmatrix
+    phase (8 lanes: a 16-byte unit of 8 rows of an M-tile; lanes 0-15 rows
+    0-15 at unit 2 ks, lanes 16-31 at 2 ks + 1) and each quarter-warp of a
+    stage's copies (copy i of lane e: unit e % 8 of doc e / 8 + 4 i) falls
+    on the 8 bank groups once; the copies fill every unit of the stage
+    once; and tile 1's A address is tile 0's plus 256 bytes."""
+    assert sorted(_step_doc(m, r) for m in range(2) for r in range(16)) == list(range(32))
+    copies = [_step_unit((e >> 3) + 4 * i, e & 7) for i in range(8) for e in range(32)]
+    assert sorted(copies) == list(range(0, 4096, 16))
+    for i in range(8):
+        for e0 in range(0, 32, 8):
+            banks = {_step_unit((e >> 3) + 4 * i, e & 7) // 16 % 8 for e in range(e0, e0 + 8)}
+            assert len(banks) == 8
+    for m in range(2):
+        for ks in range(4):
+            for phase in range(4):
+                lanes = range(8 * phase, 8 * phase + 8)
+                banks = {_step_unit(_step_doc(m, lane & 15), 2 * ks + (lane >> 4)) // 16 % 8
+                         for lane in lanes}
+                assert len(banks) == 8
+            for lane in range(32):
+                r, u = lane & 15, 2 * ks + (lane >> 4)
+                assert _step_unit(_step_doc(1, r), u) == _step_unit(_step_doc(0, r), u) + 256
+
+
+def _stream_mma_lane_products(nq, chunks):
+    """score_topk_stream_mma's arithmetic for one warp step, traced on
+    labels: which (doc, query, depth) products each lane's score of each
+    query sums. Copies (stage_step), B registers (query g % QC at words 8 ks
+    + t and 8 ks + 4 + t of chunk c), ldmatrix.x4 of A (lane l: row l % 16
+    of the tile at unit 2 ks + l / 16; matrix j from lanes 8 j .. 8 j + 7:
+    rows 0-7 / 8-15 at depth 0-7, then at 8-15), mma.m16n8k16 (C rows g
+    and g + 8, columns 2t and 2t + 1), then the selects and the lane ^ 1
+    exchange that give lane l its doc. Returns {lane: [Counter a query]}."""
+    from collections import Counter
+
+    qc = 2 if nq == 2 else 4
+    c = {(lane, m): [Counter() for _ in range(4)] for lane in range(32) for m in range(2)}
+    for ch in range(chunks):
+        stage = {}  # byte offset -> (doc, first depth)
+        for lane in range(32):
+            for i in range(8):
+                d, u = (lane >> 3) + 4 * i, lane & 7
+                stage[_step_unit(d, u)] = (d, 64 * ch + 8 * u)
+        for ks in range(4):
+            # B[kk][n]: lane (g, t)'s b0 holds kk = 2t, 2t + 1 and b1 kk = 8 + 2t, + 1
+            b = {}
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                qn = g & (qc - 1)
+                for h in range(2):
+                    word = 32 * ch + 8 * ks + 4 * h + t  # of query qn's row
+                    for half in range(2):
+                        kk = 8 * h + 2 * t + half
+                        b[kk, g] = (qn if qn < nq else None, 2 * word + half)
+            for m in range(2):
+                a = {}  # A[row][kk]
+                for lane in range(32):
+                    r, hi = lane & 15, lane >> 4
+                    d, depth0 = stage[_step_unit(_step_doc(m, r), 2 * ks + hi) - 256 * 0]
+                    assert d == _step_doc(m, r) and depth0 == 64 * ch + 16 * ks + 8 * hi
+                    for e in range(8):
+                        a[r, 8 * hi + e] = (d, depth0 + e)
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for j in range(4):
+                        row, col = g + 8 * (j >> 1), 2 * t + (j & 1)
+                        for kk in range(16):
+                            (d, da), (qq, db) = a[row, kk], b[kk, col]
+                            assert da == db  # A's depth is B's
+                            if qq is not None:
+                                c[lane, m][j][d, qq, da] += 1
+    out = {}
+    for lane in range(32):
+        odd, high = lane & 1, (lane >> 1) & 1
+        own = c[lane, high]
+        if qc == 2:
+            v = [own[2] if odd else own[0], own[3] if odd else own[1]]
+        else:
+            partner = c[lane ^ 1, high]  # what lane ^ 1 sends: its own[0 / 1] if odd, else [2 / 3]
+            sent = [partner[0], partner[1]] if not odd else [partner[2], partner[3]]
+            keep = [own[2], own[3]] if odd else [own[0], own[1]]
+            v = sent + keep if odd else keep + sent
+        out[lane] = v[:nq]
+    return out
+
+
+@pytest.mark.parametrize("nq", [2, 3, 4])
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+def test_stream_mma_fragments_cover_each_product_once(nq, chunks):
+    """Traced through the copies, the fragments, the mma and the exchange,
+    lane l's score of query q sums exactly the products of doc l and query
+    q at every depth of the chunks, each once: every (doc, query, depth)
+    product of the step once, and each lane the doc that the selections
+    test (doc base + lane, in lane order). Three chunks take the third
+    from shared memory, the first two from registers."""
+    from collections import Counter
+
+    products = _stream_mma_lane_products(nq, chunks)
+    for lane in range(32):
+        for q in range(nq):
+            want = Counter({(lane, q, depth): 1 for depth in range(64 * chunks)})
+            assert products[lane][q] == want
 
 
 CANDIDATE_CASES = [(1000, 10, 256, None), (1000, 100, 256, 700), (1000, 256, 512, None),
@@ -811,8 +1002,13 @@ def test_batch_kernel_masks_rows_past_n_docs(cuda, q, dtype):
 
 
 def _split_len(cuda, q, n, dtype, dim, k):
-    """The split length of the Q <= 4 pass for this call on the card."""
-    per_sm = topk.stream_occupancy(cuda, dtype, q, dim, k)["blocks_per_sm"]
+    """The split length of the Q <= 4 pass for this call on the card, docs
+    aligned: bf16 at Q = 2-4 and D a multiple of 8 take the tensor-core
+    pass (topk.stream_mma_takes), under its own blocks an SM."""
+    if topk.stream_mma_takes(dtype, q, dim, 0):
+        per_sm = topk.stream_mma_occupancy(cuda, q, dim, k)["blocks_per_sm"]
+    else:
+        per_sm = topk.stream_occupancy(cuda, dtype, q, dim, k)["blocks_per_sm"]
     sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
     return topk.plan(q, n, sm_count, per_sm)[2]
 
@@ -942,6 +1138,158 @@ def test_stream_block_fits_without_spills(cuda, q, k, dtype):
     assert block["blocks_per_sm"] >= (3 if (q, k) == (1, 10) else 2 if q == 1 else 1)
 
 
+def _on_tensor_cores(docs, queries, k, n_docs=None, mma=True):
+    """score_topk on the card, bit for bit the plain version, with pass 1
+    on score_topk_stream_mma (mma) or not: its launch count says which."""
+    before = topk.STREAM_MMA_LAUNCHES
+    got = _bit_equal(docs, queries, k, n_docs)
+    assert topk.STREAM_MMA_LAUNCHES - before == int(mma)
+    return got
+
+
+STREAM_MMA_EDGE_CASES = [(q, dim, k, off) for q in (2, 3, 4) for dim in (8, 64, 72, 128, 1024)
+                         for k in (1, 10, 11, 64, 256) for off in (-1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,dim,k,off", STREAM_MMA_EDGE_CASES)
+def test_stream_mma_kernel_crosses_split_edges(cuda, q, dim, k, off):
+    """bf16 docs at Q = 2-4 on the tensor cores at N = split_len m +- 1 (a
+    last split one row long or one row short, a warp's last step ragged),
+    D from one unit (8) to 1024 (16 stages a step, the queries' fragments
+    from shared memory past 128 columns; D=72 zero-fills a stage's last 7
+    units), k from 1 to 256. Integer-valued inputs sum
+    exactly in any order: the plain version's result bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 7919 + dim * 31 + k)
+    base = topk.STREAM_ROWS * (150 if dim == 1024 else 600)
+    split_len = _split_len(cuda, q, base, torch.bfloat16, dim, k)
+    n = split_len * -(-base // split_len) + off
+    docs = torch.randint(-2, 3, (n, dim), device=cuda, generator=gen).to(torch.bfloat16)
+    queries = torch.randint(-2, 3, (q, dim), device=cuda, generator=gen).float()
+    _on_tensor_cores(docs, queries, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 31, 32, 33, 255, 256, 257])
+@pytest.mark.parametrize("q", [2, 3, 4])
+def test_stream_mma_kernel_takes_fewer_docs_than_one_iteration(cuda, n, q):
+    """N below a warp step (32 docs) and a block step (256), and just past."""
+    gen = torch.Generator(device=cuda).manual_seed(n + q)
+    docs = torch.randint(-2, 3, (n, 128), device=cuda, generator=gen).to(torch.bfloat16)
+    queries = torch.randint(-2, 3, (q, 128), device=cuda, generator=gen).float()
+    _on_tensor_cores(docs, queries, min(5, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 3, 4])
+@pytest.mark.parametrize("k", [10, 64])
+def test_stream_mma_kernel_masks_rows_past_n_docs(cuda, q, k):
+    gen = torch.Generator(device=cuda).manual_seed(q + k)
+    docs = torch.randint(-2, 3, (256 * 40 + 1, 64), device=cuda, generator=gen).to(torch.bfloat16)
+    docs[5000:] = 50  # rows past n_docs would win if not masked
+    got = _on_tensor_cores(docs, torch.ones(q, 64, device=cuda), k, 5000)
+    assert int(got[1].max()) < 5000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 3, 4])
+@pytest.mark.parametrize("k", [10, 11, 256])
+def test_stream_mma_kernel_breaks_ties_to_the_lower_index(cuda, q, k):
+    """Every score ties (bf16 docs, Q = 2-4, k below, at and above the
+    Q <= 4 pass's STREAM_WIDE_K): the first k docs, in order."""
+    docs = torch.zeros(8192, 16, device=cuda, dtype=torch.bfloat16)
+    docs[:, 0] = 1.0
+    queries = torch.zeros(q, 16, device=cuda)
+    queries[:, 0] = 1.0
+    _, got_i = _on_tensor_cores(docs, queries, k)
+    assert torch.equal(got_i.cpu(), torch.arange(k, dtype=torch.int32).repeat(q, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,k", [(2, 10), (3, 11), (4, 256), (2, 256), (3, 100), (4, 1)])
+def test_stream_mma_pass_one_lists_are_each_splits_top_k(cuda, q, k):
+    """Pass 1 alone on the tensor cores, k from 1 to 256, bit for bit the
+    plain per-split top-k under the call's plan, with rows past n_docs
+    masked (integer-valued inputs)."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 37 + k)
+    docs = torch.randint(-2, 3, (100_003, 64), device=cuda, generator=gen).to(torch.bfloat16)
+    queries = torch.randint(-2, 3, (q, 64), device=cuda, generator=gen).float()
+    n_docs = 99_000
+    before = topk.STREAM_MMA_LAUNCHES
+    got_v, got_i = topk.score_topk_candidates(docs, queries, k, n_docs)
+    assert topk.STREAM_MMA_LAUNCHES == before + 1
+    pass1, _, split_len = topk.call_plan(docs, q, k)
+    assert pass1 == topk.PASS_STREAM_MMA
+    assert split_len == _split_len(cuda, q, docs.shape[0], torch.bfloat16, 64, k)
+    want_v, want_i = topk.candidates_reference(docs, queries, k, split_len, n_docs)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+
+
+STREAM_MMA_FLOAT_CASES = [(q, dim, k, off) for q in (2, 3, 4) for dim in (64, 128, 1024)
+                          for k in (10, 100, 256) for off in (-1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,dim,k,off", STREAM_MMA_FLOAT_CASES)
+def test_stream_mma_kernel_float_data_agrees_and_repeats(cuda, q, dim, k, off):
+    """Float data on the tensor cores: the products are exact and only the
+    order of the f32 sums differs from the plain version's, so scores
+    within rtol 1e-5, atol 1e-6 and indices equal but for near-ties
+    (topk.agree); two calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 7919 + dim * 31 + k + off)
+    n = 256 * (150 if dim == 1024 else 600) + off
+    docs = torch.randn(n, dim, device=cuda, generator=gen)
+    docs = (docs / docs.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    queries = torch.randn(q, dim, device=cuda, generator=gen)
+    queries /= queries.norm(dim=1, keepdim=True)
+    before = topk.STREAM_MMA_LAUNCHES
+    got = score_topk(docs, queries, k)
+    again = score_topk(docs, queries, k)
+    torch.cuda.synchronize()
+    assert topk.STREAM_MMA_LAUNCHES == before + 2
+    topk.agree(docs, queries, got, score_topk_reference(docs, queries, k))
+    assert torch.equal(got[0].view(torch.int32), again[0].view(torch.int32))
+    assert torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", ["element", "d100"])
+@pytest.mark.parametrize("q", [2, 3, 4])
+@pytest.mark.parametrize("k", [10, 256])
+def test_off_alignment_bf16_docs_take_the_stream_kernel(cuda, offset, q, k):
+    """bf16 docs at Q = 2-4 that the tensor-core pass does not take (a view
+    one element past 16-byte alignment, or D=100, off a multiple of 8) go
+    to score_topk_stream by the route rule, before any launch, and agree
+    with the plain version bit for bit (integer-valued inputs)."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 3 + k)
+    n, dim = 50_001, 128 if offset == "element" else 100
+    storage = torch.randint(-2, 3, ((n + 1) * dim,), device=cuda, generator=gen).bfloat16()
+    skip = 1 if offset == "element" else 0
+    docs = storage[skip:skip + n * dim].view(n, dim)
+    queries = torch.randint(-2, 3, (q, dim), device=cuda, generator=gen).float()
+    assert not topk.stream_mma_takes(docs.dtype, q, dim, docs.data_ptr())
+    assert topk.call_plan(docs, q, k)[0] == topk.PASS_STREAM
+    _on_tensor_cores(docs, queries, k, mma=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 3, 4])
+@pytest.mark.parametrize("k", [1, 10, 11, 256])
+@pytest.mark.parametrize("dim", [128, 1024])
+def test_stream_mma_block_fits_without_spills(cuda, q, k, dim):
+    """The tensor-core pass at Q = 2-4 and every width: no spills, the shared
+    bytes of topk.stream_mma_smem, a block an SM, and its rings' 96 KB in
+    flight an SM, over the ~18 KB the card needs."""
+    block = topk.stream_mma_occupancy(cuda, q, dim, k)
+    assert block["local_bytes"] == 0
+    assert block["smem_bytes"] == topk.stream_mma_smem(q, dim, k)
+    assert block["blocks_per_sm"] == 1
+    in_flight = (block["blocks_per_sm"] * topk.STREAM_WARPS * (topk.STREAM_MMA_STAGES - 1)
+                 * topk.STREAM_MMA_STAGE_BYTES)
+    assert in_flight >= 18 * 1024
+
+
 MERGE_CASES = [(q, s, k) for q in (1, 4, 5, 257) for s, k in MERGE_PLAN_CASES]
 
 
@@ -993,3 +1341,28 @@ def test_merge_kernel_of_pass_one_candidates(cuda, q, k, dtype):
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
     assert all(torch.equal(a, b) for a, b in zip(topk.score_topk_cuda(docs, queries, k),
                                                  (got_v, got_i)))
+
+
+def _variants():
+    from twotowers_tpu_torch.kernels import topk_variants
+    return topk_variants
+
+
+@pytest.mark.parametrize("name", sorted(_variants().VARIANTS))
+def test_every_variant_rewrites_the_source_once(name):
+    """kernels/topk_variants.py builds each variant by rewrites that must
+    each find their text once in csrc/score_topk.cu: one that no longer
+    fits would fail the chip run that times it."""
+    variants = _variants()
+    source = (Path(topk.__file__).resolve().parents[1] / "csrc" / "score_topk.cu").read_text()
+    rewritten = variants.rewrite(name, source, variants.VARIANTS[name][0])
+    assert (rewritten == source) == (not variants.VARIANTS[name][0])
+
+
+def test_every_timed_shape_has_its_queries():
+    """Every shape that kernels/topk_variants.py times draws its queries
+    from make_corpus's batches."""
+    variants = _variants()
+    shapes = (variants.SHAPES + variants.K_SWEEP + variants.WIDE_SHAPES + variants.BAR_SWEEP
+              + variants.ORDERED)
+    assert {shape[0] for shape in shapes} <= set(variants.QUERY_COUNTS)

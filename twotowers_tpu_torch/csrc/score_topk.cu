@@ -12,8 +12,9 @@
 // Design: two passes, both launched by score_topk_bar_launch.
 //  1. Grid (query block x doc split): each block keeps the top-k of its
 //     split and writes it to (Q, n_splits, k) scratch, padded with
-//     (-inf, INT_MAX). Q <= 4 takes score_topk_stream, Q >= 5
-//     score_topk_tiles; both are below.
+//     (-inf, INT_MAX). Q <= 4 takes score_topk_stream (bf16 docs at Q =
+//     2-4 score_topk_stream_mma, where aligned), Q >= 5 score_topk_tiles;
+//     all are below.
 //  2. Pass 2 (launch_merge) merges each query's n_splits sorted lists into
 //     its k best by a fixed tree of pairwise merges in shared memory.
 //
@@ -142,6 +143,60 @@
 //    blocks an SM), 117-128 f32 and 193-223 bf16 at Q=2..4 (Q=4: 2 blocks
 //    f32, 1 bf16); no spills. PERF.md section 6 has the final run beside
 //    the bound, the plain version and torch.topk of the matmul.
+//
+// score_topk_stream_mma (bf16 docs at 2 <= Q <= 4; kernels/topk.py's
+// stream_mma_takes routes them here where D is a multiple of 8 and the
+// docs 16-byte aligned, every other Q <= 4 call to score_topk_stream). The
+// bound is score_topk_stream's: 256 MB of bf16 docs at N=1M, D=128, 0.076
+// ms. score_topk_stream at Q=4 reached 36% of it (0.212 ms at k=10): 223-255
+// registers a lane (8 rows x 16 bytes in flight, the widened queries, 32
+// partial sums), one block an SM, 8 widenings and 32 fmaf a unit and a
+// 28-shuffle reduce-scatter a warp iteration, and no load in flight while
+// a warp sums or selects.
+//  - Bytes in flight without registers: each warp copies its own rows by
+//    cp.async.cg into a ring of STREAM_MMA_STAGES stages of 32 docs x
+//    STREAM_MMA_DEPTH = 64 columns (4 KB; zeros past the split's end and
+//    past D by cp.async's src-size), STAGES - 1 of them ahead of the one it
+//    multiplies, with cp.async.wait_group and __syncwarp alone: a warp that
+//    sorts or merges keeps its copies in flight and stalls no other. 8
+//    warps x 3 x 4 KB = 96 KB in flight an SM, where the card needs about
+//    18 KB. Warp w takes docs 32 w .. 32 w + 31 of every 256 of its split.
+//  - Sums on the tensor cores: mma.sync.m16n8k16 with the step's 32 docs
+//    as two M-tiles and the queries as N (column n holds query n % 4, or n
+//    % 2 at Q=2; zeros past Q), B's fragments loaded once a block (16
+//    registers for the first 128 columns, from shared memory a chunk at a
+//    time beyond them), A's by ldmatrix.x4: a stage's k-steps take 8
+//    ldmatrix and 8 mma for 32 docs, no widening, no fmaf, no
+//    reduce-scatter. Row r of M-tile m is doc 4 (r % 8) + 2 m + r / 8
+//    (step_doc), so lane (g, t) holds docs 4 g + 2 (t / 2) .. + 1 and the
+//    queries of its columns; at Q=2 each lane holds both queries and keeps
+//    doc 4 g + t, its own lane, by selects; at Q=3 and 4 one exchange with
+//    lane ^ 1 (2 shuffles) gives each lane its doc's 4 queries. Units are
+//    XOR-swizzled by (doc / 4) % 8 (step_unit): an ldmatrix phase reads 8
+//    docs 4 apart, a quarter-warp copies 8 units of one doc, each on all 32
+//    banks. Products are exact; only the order of the f32 sums differs
+//    from the plain version's (integers sum exactly, bit for bit).
+//  - The selection is score_topk_stream's wide one at every k, doc base +
+//    lane in lane order: fill, sort_list, queue and settle (a queue merged
+//    when a step might not fit it: 32 docs), then stream_tree; the same
+//    lists, the same candidates. Its narrow one (an insert a survivor) lost
+//    at every k from 10 to 256 at Q=2, 3 and 4 (topk_variants.py --k-sweep,
+//    variants "stream mma wide / narrow selection at every k", on an NVIDIA
+//    H100 80GB HBM3, 700.00 W: k=10 Q=4 0.1207 against 0.1677 ms, Q=3
+//    0.1166 against 0.1423, Q=2 0.1123 against 0.1265), so this kernel has
+//    no narrow instantiation. Shared memory: the rings (131,072 bytes), the
+//    queries in bf16 (rows of D rounded up to 64, plus 16 elements), then
+//    the lists: 216,704 bytes at Q=4, k=256, D=128, one block an SM.
+//    ptxas: 118 registers at Q=2, 128 at Q=3 and 4, no spills.
+//  - Times at N=1M, D=128, both passes, against score_topk_stream in one
+//    run (topk_variants.py --against a git archive of the parent, NVIDIA
+//    H100 80GB HBM3, 700.00 W): k=10 Q=2 0.1663 -> 0.1066 ms, Q=3 0.2015
+//    -> 0.1106, Q=4 0.2074 -> 0.1150; k=256 Q=2 0.1698 -> 0.1267, Q=3
+//    0.2011 -> 0.1556, Q=4 0.2311 -> 0.1732 (torch.topk of the matmul
+//    0.173-0.194). The product and rings alone (variant "stream mma
+//    selection cut") 0.100-0.112 ms; rings of 2 stages (2 blocks an SM
+//    where shared memory allows) no faster at k=10 and 7-8% slower at
+//    k=256. PERF.md section 6 has chip_smoke.py's rows beside the bound.
 //
 // score_topk_tiles (Q >= 5). At Q=256, N=1M, D=128 in f32 it is bound by
 // operations: 2*256*1e6*128 = 6.55e10 FLOP / 67 TFLOP/s = 0.98 ms against
@@ -313,6 +368,8 @@
 namespace {
 
 constexpr int THREADS1 = 128;       // score_topk_tiles: 4 warps
+// score_topk_bar_launch's pass1: which kernel runs pass 1 (kernels/topk.py)
+constexpr int PASS_STREAM = 1, PASS_STREAM_MMA = 2, PASS_TILES = 8;
 constexpr int MERGE_THREADS = 512;  // pass 2
 constexpr int MAX_SPLITS = 1024;
 constexpr float MASKED = -1e30f;
@@ -569,16 +626,20 @@ constexpr int STREAM_QUEUE = 64;    // survivors a wide warp queues a query befo
 static_assert(STREAM_QUEUE >= 32 && (STREAM_QUEUE & (STREAM_QUEUE - 1)) == 0,
               "a queue is sorted whole: 32 E pairs");
 
-// The queries' rows, then the narrow selection's lists and fill counts, or
-// the wide one's skewed lists and queues.
+// The wide selection's skewed lists and queues (wide), or the narrow one's
+// lists and fill counts, of a Q <= 4 block of n_queries at this k, in bytes.
+size_t stream_lists_smem(int n_queries, int k, bool wide) {
+    if (wide)
+        return 2 * sizeof(float) * STREAM_WARPS * n_queries
+               * (list_stride(k) + list_stride(STREAM_QUEUE));
+    return sizeof(float) * STREAM_WARPS * n_queries * k
+         + sizeof(int) * (STREAM_WARPS * n_queries * k + STREAM_WARPS * n_queries);
+}
+
+// The queries' rows, then the lists of the selection k takes.
 size_t stream_smem(int n_queries, int dim, int k) {
     const int dpad = (dim + STREAM_COLS - 1) / STREAM_COLS * STREAM_COLS;
-    if (k > STREAM_WIDE_K)
-        return sizeof(float) * n_queries * dpad
-             + 2 * sizeof(float) * STREAM_WARPS * n_queries
-               * (list_stride(k) + list_stride(STREAM_QUEUE));
-    return sizeof(float) * (n_queries * dpad + STREAM_WARPS * n_queries * k)
-         + sizeof(int) * (STREAM_WARPS * n_queries * k + STREAM_WARPS * n_queries);
+    return sizeof(float) * n_queries * dpad + stream_lists_smem(n_queries, k, k > STREAM_WIDE_K);
 }
 
 // Sort the first n pairs of a warp's skewed list of k (n <= k) best first
@@ -1557,6 +1618,269 @@ score_topk_tiles(const T* __restrict__ docs, const T* __restrict__ queries, long
     }
 }
 
+// score_topk_stream_mma (bf16 docs, 2 <= Q <= 4; see the note): a warp
+// steps over 32 docs at a time, each staged by its own cp.async ring.
+constexpr int STREAM_MMA_STAGES = 4;    // stages of a warp's ring
+constexpr int STREAM_MMA_DEPTH = 64;    // columns of a stage
+constexpr int MMA_STEP = 32;            // docs a warp step: two M-tiles
+constexpr int MMA_STEP_ROW = 2 * STREAM_MMA_DEPTH;  // bytes of a staged doc: 8 units
+constexpr int MMA_SLOT = MMA_STEP * MMA_STEP_ROW;   // bytes of a stage
+static_assert(STREAM_MMA_STAGES >= 2 && (STREAM_MMA_STAGES & (STREAM_MMA_STAGES - 1)) == 0,
+              "a ring of a power of two of stages");
+static_assert(MMA_STEP_ROW == 128, "a staged doc's 8 units sweep the 32 banks once");
+
+// The doc of a step (0..31) that row r of M-tile m (0 or 1) multiplies.
+// Lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of both tiles
+// and keeps row g + 8 (t % 2) of tile t / 2: doc 4 g + t, its own lane.
+__host__ __device__ constexpr int step_doc(int m, int r) {
+    return 4 * (r & 7) + 2 * m + (r >> 3);
+}
+
+// Byte offset in a stage of 16-byte unit u (columns 8u .. 8u + 7 of the
+// stage's 64) of step doc d: rows of 128 bytes, units XOR-swizzled by
+// (d / 4) % 8, so that the 8 rows of an ldmatrix phase (docs 4 apart) and
+// the 8 units of a quarter-warp's copy fall on all 32 banks.
+__host__ __device__ constexpr int step_unit(int d, int u) {
+    return d * MMA_STEP_ROW + ((u ^ ((d >> 2) & 7)) << 4);
+}
+
+// A lane's A-fragment address is the one of tile 0 plus 2 rows (256 bytes)
+// for tile 1: the swizzle of its row is the same in both tiles.
+constexpr bool step_tiles_apart() {
+    for (int r = 0; r < 16; ++r)
+        for (int u = 0; u < 8; ++u)
+            if (step_unit(step_doc(1, r), u) != step_unit(step_doc(0, r), u) + 2 * MMA_STEP_ROW)
+                return false;
+    return true;
+}
+static_assert(step_tiles_apart(), "tile 1's A-fragment address is tile 0's plus 256 bytes");
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Copy columns col0 .. col0 + 63 of docs row0 .. row0 + 31 into the stage
+// at shared address `slot`, with one warp: copy i of a lane is unit lane %
+// 8 of doc lane / 8 + 4 i (swizzled by i), zeros past `end` or `dim`.
+__device__ __forceinline__ void stage_step(unsigned slot, const __nv_bfloat16* docs,
+                                           long long row0, long long end, int col0, int dim,
+                                           int lane) {
+    const int u = lane & 7, col = col0 + 8 * u;
+#pragma unroll
+    for (int i = 0; i < MMA_STEP / 4; ++i) {
+        const int d = (lane >> 3) + 4 * i;
+        const long long row = row0 + d;
+        const bool live = row < end && col < dim;
+        const __nv_bfloat16* from = live ? docs + row * dim + col : docs;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(slot + step_unit(d, u)), "l"(from), "r"(live ? 16 : 0) : "memory");
+    }
+}
+
+// The queries' bf16 rows in shared memory: D rounded up to whole stages,
+// plus 16 elements, so that rows lie 8 words apart on the banks.
+__host__ __device__ constexpr int mma_query_stride(int dpad) { return dpad + 16; }
+
+// The rings, the queries' rows, then the wide selection's lists and queues.
+size_t stream_mma_smem(int n_queries, int dim, int k) {
+    const int dpad = (dim + STREAM_MMA_DEPTH - 1) / STREAM_MMA_DEPTH * STREAM_MMA_DEPTH;
+    return (size_t)STREAM_WARPS * STREAM_MMA_STAGES * MMA_SLOT
+         + 2 * (size_t)n_queries * mma_query_stride(dpad) + stream_lists_smem(n_queries, k, true);
+}
+
+// score_topk_stream's wide selection at every k; the docs' rows, pointer
+// and D are 16-byte aligned (the wrapper's route). One block an SM: its
+// rings fill most of the SM's shared memory.
+template <int NQ>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+score_topk_stream_mma(const __nv_bfloat16* __restrict__ docs,
+                      const __nv_bfloat16* __restrict__ queries, long long n, int dim, int k,
+                      long long n_docs, long long split_len, float* __restrict__ cand_v,
+                      int* __restrict__ cand_i) {
+    static_assert(NQ >= 2 && NQ <= 4, "Q = 1 stays on score_topk_stream");
+    constexpr int QC = NQ == 2 ? 2 : 4;   // B's column n holds query n % QC (zeros past NQ)
+    constexpr int STRIDE = STREAM_WARPS * MMA_STEP;  // docs a block step
+    const int dpad = (dim + STREAM_MMA_DEPTH - 1) / STREAM_MMA_DEPTH * STREAM_MMA_DEPTH;
+    const int chunks = dpad / STREAM_MMA_DEPTH;
+    const int qstride = mma_query_stride(dpad);
+    extern __shared__ float4 smem4[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+    // [warps][STAGES] stages, then the queries' rows [NQ][qstride] (bf16
+    // bits), then lists [warps][NQ][ls] and queues [warps][NQ][qs], skewed
+    unsigned short* q_s =
+        reinterpret_cast<unsigned short*>(smem + STREAM_WARPS * STREAM_MMA_STAGES * MMA_SLOT);
+    const int ls = list_stride(k);
+    constexpr int qs = list_stride(STREAM_QUEUE);
+    float* wide_v = reinterpret_cast<float*>(q_s + NQ * qstride);
+    int* wide_i = reinterpret_cast<int*>(wide_v + STREAM_WARPS * NQ * ls);
+    float* queue_v = reinterpret_cast<float*>(wide_i + STREAM_WARPS * NQ * ls);
+    int* queue_i = reinterpret_cast<int*>(queue_v + STREAM_WARPS * NQ * qs);
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int split = blockIdx.x;
+    const long long begin = (long long)split * split_len;
+    const long long end = min(begin + split_len, n);
+
+    const unsigned short* q_bits = reinterpret_cast<const unsigned short*>(queries);
+    for (int e = tid; e < NQ * dpad; e += STREAM_THREADS) {
+        const int qq = e / dpad, c = e - qq * dpad;
+        q_s[qq * qstride + c] = c < dim ? q_bits[(long long)qq * dim + c] : 0;
+    }
+    __syncthreads();
+
+    // B fragments: lane (g, t) holds query g % QC at depths 16 ks + 2t, + 1
+    // (b0) and 16 ks + 8 + 2t, + 1 (b1): words 8 ks + t and 8 ks + 4 + t of
+    // its row; those of the first two stages (128 columns) in registers
+    const int qn = (lane >> 2) & (QC - 1);
+    const bool q_live = qn < NQ;
+    const unsigned* q_row = reinterpret_cast<const unsigned*>(q_s + (q_live ? qn : 0) * qstride)
+                            + (lane & 3);
+    unsigned b_reg[2][4][2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                b_reg[c][ks][h] = q_live && c < chunks ? q_row[32 * c + 8 * ks + 4 * h] : 0u;
+
+    // A fragments: lanes 0-15 give rows 0-15 at depth 16 ks, lanes 16-31 at
+    // 16 ks + 8 (ldmatrix.x4: rows g, g + 8 by depth 2t and 2t + 8)
+    unsigned a_at[4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+        a_at[ks] = step_unit(step_doc(0, lane & 15), 2 * ks + (lane >> 4));
+
+    // warp w's steps: docs first + s STRIDE .. + 31
+    const long long first = begin + (long long)warp * MMA_STEP;
+    const int steps = first < end ? (int)((end - first + STRIDE - 1) / STRIDE) : 0;
+    const unsigned ring = shared_address(smem) + warp * STREAM_MMA_STAGES * MMA_SLOT;
+    int put_step = 0, put_chunk = 0, put = 0;  // the next stage to copy, and its ring place
+    auto copy_next = [&]() {
+        if (put_step < steps) {
+            stage_step(ring + (put & (STREAM_MMA_STAGES - 1)) * MMA_SLOT, docs,
+                       first + (long long)put_step * STRIDE, end, put_chunk * STREAM_MMA_DEPTH,
+                       dim, lane);
+            if (++put_chunk == chunks) {
+                put_chunk = 0;
+                ++put_step;
+            }
+        }
+        ++put;
+        cp_async_commit();  // one group a stage, empty past the last
+    };
+#pragma unroll
+    for (int i = 0; i + 1 < STREAM_MMA_STAGES; ++i) copy_next();
+
+    int filled[NQ], queued[NQ];
+    float kth_v[NQ];
+    int kth_i[NQ];
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+        filled[qq] = 0;
+        queued[qq] = 0;
+        kth_v[qq] = -INFINITY;  // the pad, while the list fills
+        kth_i[qq] = NO_INDEX;
+    }
+    float* my_wv = wide_v + warp * NQ * ls;
+    int* my_wi = wide_i + warp * NQ * ls;
+    float* my_qv = queue_v + warp * NQ * qs;
+    int* my_qi = queue_i + warp * NQ * qs;
+    const unsigned below = (1u << lane) - 1;
+    const bool odd = lane & 1, high = lane & 2;
+
+    int got = 0;  // stages multiplied
+    for (int s = 0; s < steps; ++s) {
+        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int ch = 0; ch < chunks; ++ch) {
+            cp_async_wait<STREAM_MMA_STAGES - 2>();  // this stage has landed
+            __syncwarp();                            // ... for every lane; the last is read
+            copy_next();                             // into the stage read last
+            const unsigned slot = ring + (got & (STREAM_MMA_STAGES - 1)) * MMA_SLOT;
+            ++got;
+            unsigned b[4][2];
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    b[ks][h] = ch >= 2 ? (q_live ? q_row[32 * ch + 8 * ks + 4 * h] : 0u)
+                                       : ch ? b_reg[1][ks][h] : b_reg[0][ks][h];
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+                unsigned a[4];
+                ldmatrix_x4(a, slot + a_at[ks]);
+                mma_bf16(c0, a, b[ks][0], b[ks][1]);
+                ldmatrix_x4(a, slot + a_at[ks] + 2 * MMA_STEP_ROW);
+                mma_bf16(c1, a, b[ks][0], b[ks][1]);
+            }
+        }
+
+        // the lane's doc, 4 g + t: row g + 8 (t % 2) of tile t / 2
+        float own[4], v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) own[j] = high ? c1[j] : c0[j];
+        if constexpr (QC == 2) {  // every lane holds queries 0 and 1
+            v[0] = odd ? own[2] : own[0];
+            v[1] = odd ? own[3] : own[1];
+        } else {  // even lanes hold queries 0, 1 and odd lanes 2, 3: swap halves
+            const float r0 = __shfl_xor_sync(FULL, odd ? own[0] : own[2], 1);
+            const float r1 = __shfl_xor_sync(FULL, odd ? own[1] : own[3], 1);
+            const float k0 = odd ? own[2] : own[0], k1 = odd ? own[3] : own[1];
+            v[0] = odd ? r0 : k0;
+            v[1] = odd ? r1 : k1;
+            v[2] = odd ? k0 : r0;
+            v[3] = odd ? k1 : r1;
+        }
+
+        // the prune: a doc that beats the warp's k-th best (the pad while the
+        // list fills) takes, in lane order, the list's next free place or
+        // else the queue's; sorts and merges wait for settle
+        const long long doc = first + (long long)s * STRIDE + lane;
+        const bool live = doc < end;
+        unsigned sorting = 0, merging = 0;
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) {
+            const float score = doc < n_docs ? v[qq] : MASKED;
+            const bool pass = live && ranks_before(score, (int)doc, kth_v[qq], kth_i[qq]);
+            const unsigned m = __ballot_sync(FULL, pass);
+            const int at = __popc(m & below), all = __popc(m);
+            const int take = min(all, k - filled[qq]);
+            if (pass) {
+                const bool fill = at < take;
+                const int e = skew(fill ? filled[qq] + at : queued[qq] + at - take);
+                (fill ? my_wv + qq * ls : my_qv + qq * qs)[e] = score;
+                (fill ? my_wi + qq * ls : my_qi + qq * qs)[e] = (int)doc;
+            }
+            filled[qq] += take;
+            queued[qq] += all - take;
+            if (take > 0 && filled[qq] == k) sorting |= 1u << qq;
+            if (queued[qq] > STREAM_QUEUE - MMA_STEP) merging |= 1u << qq;  // room for a step
+        }
+        if (sorting | merging) {
+            __syncwarp();
+            settle<NQ>(sorting, merging, my_wv, my_wi, my_qv, my_qi, ls, k, filled, queued, kth_v,
+                       kth_i, lane);
+        }
+    }
+    cp_async_wait<0>();  // no copy outlives the block (the groups past the last are empty)
+
+    // a list that never filled is sorted now, a queue left over merged
+    unsigned sorting = 0, merging = 0;
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+        if (filled[qq] < k) sorting |= 1u << qq;
+        else if (queued[qq] > 0) merging |= 1u << qq;
+    }
+    __syncwarp();
+    settle<NQ>(sorting, merging, my_wv, my_wi, my_qv, my_qi, ls, k, filled, queued, kth_v, kth_i,
+               lane);
+    __syncthreads();
+    stream_tree<NQ>(wide_v, wide_i, ls, k, cand_v + (long long)split * k,
+                    cand_i + (long long)split * k, (long long)gridDim.x * k, tid);
+}
+
 // Words of a shared plane of n pairs' values or indices, padding included,
 // rounded up to whole 16-byte units.
 __host__ __device__ constexpr int plane(int n) { return (n + (n + 31) / 32 + 3) / 4 * 4; }
@@ -1791,6 +2115,65 @@ cudaError_t stream_occupancy(int n_queries, int dim, int k, int* blocks_per_sm, 
     }
 }
 
+using StreamMmaKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, long long, int, int,
+                                 long long, long long, float*, int*);
+
+// score_topk_stream_mma for NQ queries, its shared memory set for this k.
+template <int NQ>
+cudaError_t stream_mma_kernel(int dim, int k, StreamMmaKernel* kernel) {
+    *kernel = score_topk_stream_mma<NQ>;
+    return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)stream_mma_smem(NQ, dim, k));
+}
+
+template <int NQ>
+cudaError_t launch_stream_mma_q(const void* docs, const void* queries, long long n, int dim,
+                                int k, long long n_docs, int n_splits, long long split_len,
+                                float* cand_v, int* cand_i, cudaStream_t stream) {
+    StreamMmaKernel kernel;
+    cudaError_t err = stream_mma_kernel<NQ>(dim, k, &kernel);
+    if (err != cudaSuccess) return err;
+    kernel<<<n_splits, STREAM_THREADS, stream_mma_smem(NQ, dim, k), stream>>>(
+        static_cast<const __nv_bfloat16*>(docs), static_cast<const __nv_bfloat16*>(queries), n,
+        dim, k, n_docs, split_len, cand_v, cand_i);
+    return cudaGetLastError();
+}
+
+// The Q <= 4 pass on the tensor cores: bf16 docs at 2 <= n_queries <= 4,
+// D a multiple of 8 and the docs 16-byte aligned, else cudaErrorInvalidValue
+// (the wrapper routes every other call to score_topk_stream).
+cudaError_t launch_stream_mma(const void* docs, const void* queries, long long n, int n_queries,
+                              int dim, int k, long long n_docs, int n_splits,
+                              long long split_len, float* cand_v, int* cand_i,
+                              cudaStream_t stream) {
+    if (k < 1 || k > MAX_K || dim % 8 != 0 || reinterpret_cast<uintptr_t>(docs) % 16 != 0)
+        return cudaErrorInvalidValue;
+    switch (n_queries) {
+        case 2: return launch_stream_mma_q<2>(docs, queries, n, dim, k, n_docs, n_splits,
+                                                split_len, cand_v, cand_i, stream);
+        case 3: return launch_stream_mma_q<3>(docs, queries, n, dim, k, n_docs, n_splits,
+                                                split_len, cand_v, cand_i, stream);
+        case 4: return launch_stream_mma_q<4>(docs, queries, n, dim, k, n_docs, n_splits,
+                                                split_len, cand_v, cand_i, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+template <int NQ>
+cudaError_t stream_mma_occupancy_q(int dim, int k, int* blocks_per_sm, int* registers,
+                                   int* local_bytes) {
+    StreamMmaKernel kernel;
+    cudaError_t err = stream_mma_kernel<NQ>(dim, k, &kernel);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    *registers = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, STREAM_THREADS,
+                                                         stream_mma_smem(NQ, dim, k));
+}
+
 // The wide selection's lists, buffers, bars and buffer counts, or the
 // narrow one's lists, queue counts and fill counts, after the two staging
 // buffers.
@@ -1869,12 +2252,14 @@ extern "C" {
 // docs (n, dim) and queries (n_queries, dim), both row-major and of one type
 // (float32, or bfloat16 when docs_bf16 != 0); cand_v/cand_i are
 // (n_queries, n_splits, k) scratch; out_v/out_i are (n_queries, k).
-// rows_per_thread picks pass 1: 1 (score_topk_stream, 1 <= n_queries <= 4,
-// one block a split) or 8 (score_topk_tiles, 32 queries a block; bf16 docs
-// on the tensor cores).
+// pass1 picks pass 1: PASS_STREAM (score_topk_stream, 1 <= n_queries <= 4,
+// one block a split), PASS_STREAM_MMA (score_topk_stream_mma: bf16 docs,
+// 2 <= n_queries <= 4, D a multiple of 8, docs 16-byte aligned; one block a
+// split) or PASS_TILES (score_topk_tiles, 32 queries a block; bf16 docs on
+// the tensor cores).
 // merge_group is pass 2's group of lists (merge_plan); 0 runs pass 1 alone
 // and leaves its lists in cand_v/cand_i, out_v/out_i untouched.
-// The wide selection alone (score_topk_tiles: rows_per_thread 8, k >
+// The wide selection alone (score_topk_tiles: pass1 PASS_TILES, k >
 // WIDE_K) takes a bar and a sample: bar_v/bar_i (nullptr for none) give
 // query q's bar at q * bar_stride, and each split then keeps its top-k
 // among the pairs that rank at or before it; split s reads the docs
@@ -1883,26 +2268,31 @@ extern "C" {
 // Returns the cudaError_t of the launches (0 on success).
 int score_topk_bar_launch(const void* docs, const void* queries, int docs_bf16,
                           long long n, int n_queries, int dim, int k, long long n_docs,
-                          int n_splits, long long split_len, int rows_per_thread,
+                          int n_splits, long long split_len, int pass1,
                           float* cand_v, int* cand_i, float* out_v, int* out_i,
                           int merge_group, const float* bar_v, const int* bar_i,
                           long long bar_stride, long long split_docs, void* stream) {
-    const bool wide = rows_per_thread != 1 && k > WIDE_K;
+    const bool wide = pass1 == PASS_TILES && k > WIDE_K;
     if (n_splits < 1 || n_splits > MAX_SPLITS || merge_group < 0
+        || (pass1 != PASS_STREAM && pass1 != PASS_STREAM_MMA && pass1 != PASS_TILES)
+        || (pass1 == PASS_STREAM_MMA && !docs_bf16)
         || (bar_v != nullptr && (bar_i == nullptr || !wide)) || split_docs < 1
         || split_docs > split_len || (split_docs != split_len && !wide))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if (docs_bf16)
-        err = rows_per_thread == 1
+    if (pass1 == PASS_STREAM_MMA)
+        err = launch_stream_mma(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
+                                split_len, cand_v, cand_i, s);
+    else if (docs_bf16)
+        err = pass1 == PASS_STREAM
             ? launch_stream<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
                                            n_splits, split_len, cand_v, cand_i, s)
             : launch_tiles<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
                                           n_splits, split_len, cand_v, cand_i, bar_v, bar_i,
                                           bar_stride, split_docs, s);
     else
-        err = rows_per_thread == 1
+        err = pass1 == PASS_STREAM
             ? launch_stream<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
                                    split_len, cand_v, cand_i, s)
             : launch_tiles<float>(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
@@ -1945,6 +2335,20 @@ int score_topk_stream_occupancy(int docs_bf16, int n_queries, int dim, int k, in
                                                             registers, local_bytes)
                      : (int)stream_occupancy<float>(n_queries, dim, k, blocks_per_sm,
                                                     registers, local_bytes);
+}
+
+// The same for a score_topk_stream_mma block of n_queries (2..4) at this
+// dim and k.
+int score_topk_stream_mma_occupancy(int n_queries, int dim, int k, int* smem_bytes,
+                                    int* blocks_per_sm, int* registers, int* local_bytes) {
+    if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+    *smem_bytes = (int)stream_mma_smem(n_queries, dim, k);
+    switch (n_queries) {
+        case 2: return (int)stream_mma_occupancy_q<2>(dim, k, blocks_per_sm, registers, local_bytes);
+        case 3: return (int)stream_mma_occupancy_q<3>(dim, k, blocks_per_sm, registers, local_bytes);
+        case 4: return (int)stream_mma_occupancy_q<4>(dim, k, blocks_per_sm, registers, local_bytes);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // The same for a pass-2 block over `lists` lists of k: level 1

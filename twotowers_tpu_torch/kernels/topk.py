@@ -11,6 +11,10 @@ wrapper raises ``ValueError`` and hands nothing to the plain version. It
 launches on the current stream, allocates outputs and scratch with
 ``torch.empty``, and raises if the launch returns a CUDA error.
 
+Pass 1 is one of three kernels (``call_plan``): ``score_topk_stream`` at
+Q <= 4, ``score_topk_stream_mma`` (the tensor cores) in its place for bf16
+docs at Q = 2-4 whose rows allow 16-byte copies (``stream_mma_takes``, the
+route rule), and ``score_topk_tiles`` at Q >= 5.
 Pass 1 leaves each query's ``(n_splits, k)`` sorted lists in scratch;
 pass 2 merges them by a fixed tree (``merge_plan``). ``merge_topk_cuda``
 runs pass 2 alone and ``merge_topk_reference`` is its plain version, for
@@ -57,6 +61,11 @@ BAR_MIN_TILES = 4      # ... where the call's splits span at least this many til
 STAGING_BYTES = 37_376  # score_topk.cu: 2 * STAGE floats of the Q >= 5 pass 1
 MMA_DEPTH = 32      # score_topk.cu:MMA_DEPTH: depth of a bf16 Q >= 5 stage (256 doc
                     # and 32 query rows of 64 bytes, two stages within STAGING_BYTES)
+STREAM_MMA_STAGES = 4   # score_topk.cu:STREAM_MMA_STAGES: stages of a warp's cp.async ring
+STREAM_MMA_DEPTH = 64   # score_topk.cu:STREAM_MMA_DEPTH: columns of a stage (32 docs, 4 KB)
+STREAM_MMA_STAGE_BYTES = 32 * STREAM_MMA_DEPTH * 2
+# score_topk.cu's pass1 codes: the kernel that runs pass 1
+PASS_STREAM, PASS_STREAM_MMA, PASS_TILES = 1, 2, 8
 
 MERGE_SMEM_BUDGET = 110 * 1024  # shared bytes of a pass-2 block, at most: 2 blocks an SM
 NO_INDEX = 2**31 - 1  # the index of a padding pair, beside the value -inf
@@ -65,6 +74,8 @@ NO_INDEX = 2**31 - 1  # the index of a padding pair, beside the value -inf
 # call counts its sample runs too); a run reads it to show it went through
 # the kernel
 LAUNCHES = 0
+# ... of them, those whose pass 1 ran score_topk_stream_mma
+STREAM_MMA_LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -73,13 +84,14 @@ def plan(n_queries: int, n: int, sm_count: int,
          blocks_per_sm: int) -> Tuple[int, int, int]:
     """(rows_per_thread, n_splits, split_len) for a call.
 
-    Q <= 4 takes ``score_topk_stream`` (all the queries in one block, splits
-    a whole number of ``STREAM_ROWS`` docs); Q >= 5 takes
-    ``score_topk_tiles`` (32 queries a block, tiles of ``BATCH_TILE_N``).
-    Either aims at ``blocks_per_sm``, the blocks of its pass that fit on an
-    SM at once (``stream_occupancy`` or ``tiles_occupancy``): about one
-    wave of splits, each as long as it can be. The doc axis is cut into
-    that many splits, each a whole number of tiles.
+    Q <= 4 takes ``score_topk_stream`` or ``score_topk_stream_mma`` (all
+    the queries in one block, splits a whole number of ``STREAM_ROWS``
+    docs); Q >= 5 takes ``score_topk_tiles`` (32 queries a block, tiles of
+    ``BATCH_TILE_N``). Each aims at ``blocks_per_sm``, the blocks of its
+    pass that fit on an SM at once (``stream_occupancy``,
+    ``stream_mma_occupancy`` or ``tiles_occupancy``): about one wave of
+    splits, each as long as it can be. The doc axis is cut into that many
+    splits, each a whole number of tiles.
     """
     if n_queries <= 4:
         rows, tile = 1, STREAM_ROWS
@@ -183,10 +195,37 @@ def stream_smem(n_queries: int, dim: int, k: int) -> int:
     ``STREAM_QUEUE`` a query; else each warp's list of k and its fill
     count a query."""
     dpad = -(-dim // 128) * 128
+    return 4 * n_queries * dpad + _stream_lists(n_queries, k, k > STREAM_WIDE_K)
+
+
+def stream_mma_takes(dtype: torch.dtype, n_queries: int, dim: int, docs_ptr: int) -> bool:
+    """The Q <= 4 pass's route rule: ``score_topk_stream_mma`` (the tensor
+    cores) takes bf16 docs at Q = 2-4 whose rows and pointer allow its
+    16-byte copies (D a multiple of 8, the pointer 16-byte aligned); every
+    other Q <= 4 call, f32 or Q = 1 or off alignment, stays on
+    ``score_topk_stream``. Decided before any launch: a launch that fails
+    raises, it never picks the route."""
+    return dtype == torch.bfloat16 and 2 <= n_queries <= 4 and dim % 8 == 0 \
+        and docs_ptr % 16 == 0
+
+
+def stream_mma_smem(n_queries: int, dim: int, k: int) -> int:
+    """Shared bytes of a ``score_topk_stream_mma`` block
+    (``score_topk.cu:stream_mma_smem``): 8 warps' rings of
+    ``STREAM_MMA_STAGES`` stages of 4 KB, the queries' bf16 rows (D rounded
+    up to whole ``STREAM_MMA_DEPTH``, plus 16 elements), then the wide
+    selection's lists and queues, as ``stream_smem`` counts them (the
+    kernel selects by the wide selection at every k)."""
+    dpad = -(-dim // STREAM_MMA_DEPTH) * STREAM_MMA_DEPTH
+    rings = STREAM_WARPS * STREAM_MMA_STAGES * STREAM_MMA_STAGE_BYTES
+    return rings + 2 * n_queries * (dpad + 16) + _stream_lists(n_queries, k, True)
+
+
+def _stream_lists(n_queries: int, k: int, wide: bool) -> int:
     lists = STREAM_WARPS * n_queries
-    if k > STREAM_WIDE_K:
-        return 4 * n_queries * dpad + 8 * lists * (list_stride(k) + list_stride(STREAM_QUEUE))
-    return 4 * n_queries * dpad + 8 * lists * k + 4 * lists
+    if wide:
+        return 8 * lists * (list_stride(k) + list_stride(STREAM_QUEUE))
+    return 8 * lists * k + 4 * lists
 
 
 def merge_smem(lists: int, k: int) -> int:
@@ -260,6 +299,9 @@ def _lib() -> ctypes.CDLL:
         occ = lib.score_topk_stream_occupancy
         occ.argtypes = [i32, i32, i32, i32] + [ctypes.POINTER(i32)] * 4
         occ.restype = i32
+        occ = lib.score_topk_stream_mma_occupancy
+        occ.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 4
+        occ.restype = i32
         merge = lib.score_topk_merge_launch
         merge.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
         merge.restype = i32
@@ -272,6 +314,7 @@ def _lib() -> ctypes.CDLL:
 _OCCUPANCY_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes")
 _occupancy: Dict[Tuple[int, bool, int], Dict[str, int]] = {}
 _stream_occupancy: Dict[Tuple[int, bool, int, int, int], Dict[str, int]] = {}
+_stream_mma_occupancy: Dict[Tuple[int, int, int, int], Dict[str, int]] = {}
 
 
 def tiles_occupancy(device: torch.device, dtype: torch.dtype, k: int) -> Dict[str, int]:
@@ -310,6 +353,45 @@ def stream_occupancy(device: torch.device, dtype: torch.dtype, n_queries: int, d
     return _stream_occupancy[key]
 
 
+def stream_mma_occupancy(device: torch.device, n_queries: int, dim: int,
+                         k: int) -> Dict[str, int]:
+    """A ``score_topk_stream_mma`` block (bf16 docs, Q = 2-4) at this
+    ``dim`` and ``k`` on the card, as the CUDA runtime reports it: the keys
+    of ``stream_occupancy``."""
+    dpad = -(-dim // STREAM_MMA_DEPTH) * STREAM_MMA_DEPTH
+    key = (torch.device(device).index or 0, n_queries, dpad, k)
+    if key not in _stream_mma_occupancy:
+        out = [ctypes.c_int() for _ in range(4)]
+        with torch.cuda.device(device):
+            err = _lib().score_topk_stream_mma_occupancy(n_queries, dpad, k,
+                                                         *map(ctypes.byref, out))
+        if err != 0:
+            raise RuntimeError(f"score_topk occupancy query failed with cudaError_t {err}")
+        _stream_mma_occupancy[key] = dict(zip(_OCCUPANCY_KEYS, (o.value for o in out)))
+    return _stream_mma_occupancy[key]
+
+
+def call_plan(doc_matrix: torch.Tensor, n_queries: int, k: int) -> Tuple[int, int, int]:
+    """(pass1, n_splits, split_len) of a call on the card: the kernel that
+    runs pass 1 (``PASS_STREAM``, ``PASS_STREAM_MMA`` where
+    ``stream_mma_takes``, or ``PASS_TILES``) and ``plan()`` under its
+    blocks per SM."""
+    device = doc_matrix.device
+    n, dim = doc_matrix.shape
+    dtype = doc_matrix.dtype
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    mma = stream_mma_takes(dtype, n_queries, dim, doc_matrix.data_ptr())
+    if n_queries > 4:
+        block = tiles_occupancy(device, dtype, k)
+    elif mma:
+        block = stream_mma_occupancy(device, n_queries, dim, k)
+    else:
+        block = stream_occupancy(device, dtype, n_queries, dim, k)
+    rows, n_splits, split_len = plan(n_queries, n, sm_count, block["blocks_per_sm"])
+    pass1 = PASS_TILES if rows == 8 else PASS_STREAM_MMA if mma else PASS_STREAM
+    return pass1, n_splits, split_len
+
+
 def merge_occupancy(device: torch.device, final_level: bool, lists: int,
                     k: int) -> Dict[str, int]:
     """A pass-2 block over ``lists`` lists of ``k`` on the card, level 1
@@ -344,7 +426,8 @@ def _call(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optio
     """Check a call and plan it: (launch, n_splits, split_len), where
     ``launch(n_splits, split_len, split_docs, bar)`` launches pass 1 under
     that plan, then pass 2 if ``merge``, returns (cand_v, cand_i, out_v,
-    out_i) and adds one to ``LAUNCHES``."""
+    out_i) and adds one to ``LAUNCHES`` (and to ``STREAM_MMA_LAUNCHES``
+    where ``score_topk_stream_mma`` ran pass 1)."""
     check_args(doc_matrix, queries, k)
     device = doc_matrix.device
     if device.type != "cuda" or queries.device != device:
@@ -354,15 +437,10 @@ def _call(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optio
     n_docs = n if n_docs is None else int(n_docs)
     queries = queries.to(doc_matrix.dtype).contiguous()
     n_queries = queries.shape[0]
-    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    if n_queries > 4:
-        block = tiles_occupancy(device, doc_matrix.dtype, k)
-    else:
-        block = stream_occupancy(device, doc_matrix.dtype, n_queries, dim, k)
-    rows, n_splits, split_len = plan(n_queries, n, sm_count, block["blocks_per_sm"])
+    pass1, n_splits, split_len = call_plan(doc_matrix, n_queries, k)
 
     def launch(n_splits: int, split_len: int, split_docs: int, bar: Optional[Bar]):
-        global LAUNCHES
+        global LAUNCHES, STREAM_MMA_LAUNCHES
         bar_args = (None, None, 0)
         if bar is not None:
             _check_bar(bar, n_queries, k, device)
@@ -376,12 +454,13 @@ def _call(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optio
             err = _lib().score_topk_bar_launch(
                 doc_matrix.data_ptr(), queries.data_ptr(),
                 int(doc_matrix.dtype == torch.bfloat16), n, n_queries, dim, k, n_docs,
-                n_splits, split_len, rows, cand_v.data_ptr(), cand_i.data_ptr(),
+                n_splits, split_len, pass1, cand_v.data_ptr(), cand_i.data_ptr(),
                 out_v.data_ptr(), out_i.data_ptr(), group, *bar_args, split_docs,
                 torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"score_topk kernel launch failed with cudaError_t {err}")
         LAUNCHES += 1
+        STREAM_MMA_LAUNCHES += int(pass1 == PASS_STREAM_MMA)
         return cand_v, cand_i, out_v, out_i
 
     return launch, n_splits, split_len

@@ -81,7 +81,9 @@ from ..ops.topk_score import score_topk_reference
 OUT_DIR = build.BUILD_DIR.parent / "topk_variants"
 K, N, DIM = 10, 1_000_000, 128
 SHAPES = [(1, torch.float32, K), (1, torch.bfloat16, K), (4, torch.float32, K),
-          (4, torch.bfloat16, K), (1, torch.float32, 256), (1, torch.bfloat16, 256),
+          (4, torch.bfloat16, K), (2, torch.bfloat16, K), (3, torch.bfloat16, K),
+          (2, torch.bfloat16, 256), (3, torch.bfloat16, 256),
+          (1, torch.float32, 256), (1, torch.bfloat16, 256),
           (32, torch.float32, K), (32, torch.bfloat16, K), (256, torch.float32, K),
           (256, torch.bfloat16, K), (32, torch.float32, 256), (256, torch.float32, 256),
           (32, torch.bfloat16, 256), (256, torch.bfloat16, 256), (32, torch.float32, 100),
@@ -89,6 +91,7 @@ SHAPES = [(1, torch.float32, K), (1, torch.bfloat16, K), (4, torch.float32, K),
 K_SWEEP = [(q, torch.float32, k) for q in (32, 256) for k in (10, 12, 14, 16, 24, 32)]
 K_SWEEP += [(q, dtype, k) for q in (1, 4) for dtype in (torch.float32, torch.bfloat16)
             for k in (10, 14, 16, 24, 32, 64, 100, 256)]
+K_SWEEP += [(q, torch.bfloat16, k) for q in (2, 3) for k in (10, 14, 16, 24, 32, 64, 100, 256)]
 # the Q >= 5 pass's wide selection (--wide); the same at smaller N (--bar-sweep: a
 # fourth element is N), where the bar's sample run weighs more or there is none;
 # and at k=256 on corpora stored in order (--ordered: a fifth element names it)
@@ -99,10 +102,11 @@ BAR_SWEEP = [(q, dtype, k, n) for q in (32, 256) for dtype in (torch.float32, to
 ORDERED = [(q, dtype, 256, N, corpus) for q in (32, 256)
            for dtype in (torch.float32, torch.bfloat16) for corpus in ("topics", "sorted")]
 TOPICS = 64  # topics of the "topics" corpus
+QUERY_COUNTS = (1, 4, 32, 256, 2, 3)  # the query batches of make_corpus, drawn in this order
 
 
 def make_corpus(kind: str, gen: torch.Generator, dev: torch.device):
-    """N unit docs of DIM and queries {Q: (Q, DIM)} for Q = 1, 4, 32, 256.
+    """N unit docs of DIM and queries {Q: (Q, DIM)} for Q in QUERY_COUNTS.
     "random": i.i.d. directions. "topics": TOPICS topics of N / TOPICS docs
     each, stored topic by topic (a doc its topic's direction plus noise of
     the same norm), each query near a random topic's direction. "sorted":
@@ -110,7 +114,7 @@ def make_corpus(kind: str, gen: torch.Generator, dev: torch.device):
     each query near that direction. A sample of the first docs would give
     the last two a weak bar."""
     docs = torch.randn(N, DIM, device=dev, generator=gen)
-    queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in (1, 4, 32, 256)}
+    queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in QUERY_COUNTS}
     if kind == "topics":
         centers = torch.randn(TOPICS, DIM, device=dev, generator=gen)
         centers /= centers.norm(dim=1, keepdim=True)
@@ -342,6 +346,18 @@ VARIANTS = {
     "stream narrow selection and end merge cut": ([STREAM_NARROW, SELECTION_CUT, END_MERGE_CUT],
                                                   topk.plan),
     "stream narrow inserts counted": ([STREAM_NARROW, *INSERTS_COUNTED], topk.plan),
+    # the bf16 Q = 2-4 pass (the tensor cores): its product and rings alone
+    # (no score passes 1e30, so the selection keeps its ballots and its end
+    # of empty lists, sorted and merged by the tree)
+    # ... and its ring of 2 stages (32 KB in flight a block, 2 blocks an SM
+    # where shared memory allows)
+    "stream mma ring of 2 stages": ([("constexpr int STREAM_MMA_STAGES = 4;",
+                                      "constexpr int STREAM_MMA_STAGES = 2;")], topk.plan),
+    "stream mma selection cut": ([
+        ("const bool pass = live && ranks_before(score, (int)doc, kth_v[qq], kth_i[qq]);",
+         "const bool pass = live && score > 1.0e30f\n"
+         "                             && ranks_before(score, (int)doc, kth_v[qq], kth_i[qq]);"),
+    ], topk.plan),
     # the Q >= 5 pass's product alone, bf16 on the tensor cores and f32 on the
     # CUDA cores: no score passes 1e30, so the narrow selection is one
     # block-wide vote a tile and the wide one keeps only its votes; every
@@ -393,7 +409,7 @@ BAR_RULES = {"no bar": None,
              "bar of 32,768 docs": {"max_docs": 32_768}}
 # variants whose output is not the function's: timed, never checked
 CUT = {"stream narrow selection cut", "stream narrow selection and end merge cut",
-       "selection cut", "wide votes only", "wide votes and queueing",
+       "stream mma selection cut", "selection cut", "wide votes only", "wide votes and queueing",
        "wide votes, queueing and sort"}
 # variants made of "against"'s source too, named "<variant> (against)"
 OF_AGAINST = ("wide votes only", "wide votes and queueing", "wide votes, queueing and sort",
@@ -532,6 +548,7 @@ def launcher(lib: ctypes.CDLL, plan, bar_rule=None):
     else:
         lib.score_topk_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64,
                                           i32, ptr, ptr, ptr, ptr] + [i32] * tree + [ptr]
+    mma_lib = hasattr(lib, "score_topk_stream_mma_occupancy")  # else no bf16 Q = 2-4 pass
     if hasattr(lib, "score_topk_stream_inserts"):
         lib.score_topk_stream_inserts.restype = ctypes.c_ulonglong
     if hasattr(lib, "score_topk_wide_counts"):
@@ -539,18 +556,25 @@ def launcher(lib: ctypes.CDLL, plan, bar_rule=None):
         lib.score_topk_wide_counts.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     occupancy = {}
 
-    def per_sm(dtype, q, k=K):
+    def mma(dtype, q, dim=DIM, ptr=0):
+        """Whether the call takes score_topk_stream_mma (topk.stream_mma_takes,
+        where the source has it)."""
+        return mma_lib and topk.stream_mma_takes(dtype, q, dim, ptr)
+
+    def per_sm(dtype, q, k=K, dim=DIM, ptr=0):
         """(shared-memory bytes, blocks per SM, registers, local bytes) of
         the pass that takes Q=q; the last two None where the source does
         not report them."""
-        key = (dtype, min(q, 5), k)
+        key = (dtype, min(q, 5), k, dim, mma(dtype, q, dim, ptr))
         bf16 = int(dtype == torch.bfloat16)
         if key not in occupancy:
             out = [ctypes.c_int(-1) for _ in range(4)]
             if q > 4:  # an older source reads the first two pointers, ignores the rest
                 err = lib.score_topk_tiles_occupancy(bf16, k, *map(ctypes.byref, out))
+            elif key[-1]:
+                err = lib.score_topk_stream_mma_occupancy(q, dim, k, *map(ctypes.byref, out))
             elif hasattr(lib, "score_topk_stream_occupancy"):
-                err = lib.score_topk_stream_occupancy(bf16, q, DIM, k, *map(ctypes.byref, out))
+                err = lib.score_topk_stream_occupancy(bf16, q, dim, k, *map(ctypes.byref, out))
             else:  # a source whose Q <= 4 plan aimed at a fixed 8 blocks an SM
                 err, out[1].value = 0, 8
             if err != 0:
@@ -558,14 +582,16 @@ def launcher(lib: ctypes.CDLL, plan, bar_rule=None):
             occupancy[key] = tuple(o.value if o.value >= 0 else None for o in out)
         return occupancy[key]
 
-    def plan_of(q, dtype, k, n=N):
+    def plan_of(q, dtype, k, n=N, dim=DIM, ptr=0):
         sm = torch.cuda.get_device_properties(0).multi_processor_count
-        return plan(q, n, sm, per_sm(dtype, q, k)[1])
+        return plan(q, n, sm, per_sm(dtype, q, k, dim, ptr)[1])
 
     def run(docs, queries, k=K):
         n, dim = docs.shape
         q = queries.shape[0]
-        rows, n_splits, split_len = plan_of(q, docs.dtype, k, n)
+        rows, n_splits, split_len = plan_of(q, docs.dtype, k, n, dim, docs.data_ptr())
+        if mma(docs.dtype, q, dim, docs.data_ptr()):
+            rows = topk.PASS_STREAM_MMA
 
         def launch(n_splits, split_len, split_docs, bar):
             cand_v = torch.empty((q, n_splits, k), dtype=torch.float32, device=docs.device)
@@ -665,7 +691,7 @@ def main() -> int:
         qints = torch.randint(-2, 3, (257, 128), device=dev, generator=gen).float()
         for dtype in (torch.float32, torch.bfloat16):
             for q, k in ((1, K), (4, K), (257, K), (1, 256), (4, 256), (1, 100), (2, 33),
-                         (3, 64), (257, 256), (33, 100), (5, 33)):
+                         (3, 64), (2, K), (3, 256), (257, 256), (33, 100), (5, 33)):
                 if is_cut(name):
                     break
                 got = run(ints.to(dtype), qints[:q].to(dtype), k)
@@ -675,7 +701,8 @@ def main() -> int:
                                          "plain version's result")
         runs[name] = (run, {"ptxas": ptxas, "occupancy_f32_bf16": {
             f"q{q} k{k}": [per_sm(torch.float32, q, k), per_sm(torch.bfloat16, q, k)]
-            for q, k in ((1, K), (4, K), (1, 256), (4, 256), (5, K), (5, 256))}})
+            for q, k in ((1, K), (2, K), (3, K), (4, K), (1, 256), (2, 256), (3, 256),
+                         (4, 256), (5, K), (5, 256))}})
     inputs, queries = {}, {}
     for kind in dict.fromkeys(["random"] + [shape[4] for shape in shapes]):
         docs, queries[kind] = make_corpus(kind, gen, dev)
@@ -696,7 +723,7 @@ def main() -> int:
             got, want = runs["shipped"][0](d, qs, k), runs[AGAINST][0](d, qs, k)
             bits = (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
                     and torch.equal(got[1], want[1]))
-            if d.dtype == torch.bfloat16 and qs.shape[0] > 4:  # a parent may sum on CUDA cores
+            if d.dtype == torch.bfloat16 and qs.shape[0] > 1:  # a parent may sum on CUDA cores
                 err, swaps = topk.agree(d, qs, got, want)
                 held[label(*shape)] = {"max_abs_err": err, "near_tie_swaps": swaps,
                                        "bit_equal": bits}
@@ -770,10 +797,11 @@ def main() -> int:
     shipped_sass = sass_kernels(libs["shipped"][2])
     for kernel in ("score_topk_tilesIfLb0", "score_topk_tilesIfLb1",
                    "score_topk_tilesI13__nv_bfloat16Lb0", "score_topk_tilesI13__nv_bfloat16Lb1",
-                   "score_topk_streamIfLi1ELb0", "score_topk_streamIfLi1ELb1"):
+                   "score_topk_streamIfLi1ELb0", "score_topk_streamIfLi1ELb1",
+                   "score_topk_stream_mmaILi4"):
         ops = sass_opcodes(shipped_sass, kernel)
         print(json.dumps({f"sass_opcodes shipped {kernel}": ops}), flush=True)
-        if "tilesI13__nv_bfloat16" in kernel:  # the tensor cores: HMMA, no f32 FMA loop
+        if "bfloat16" in kernel or "mma" in kernel:  # the tensor cores: HMMA, no f32 FMA loop
             hmma = sum(n for op, n in ops.items() if op.startswith("HMMA"))
             ffma = sum(n for op, n in ops.items() if op.startswith("FFMA"))
             if hmma == 0 or ffma >= hmma:
