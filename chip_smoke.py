@@ -10,9 +10,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               together) and the native tokenizer, from this checkout.
 3. kernels -- the score + top-k kernel's Q <= 4 block and Q >= 5 block
               (registers, local bytes, shared-memory bytes and blocks per
-              SM; the Q >= 5 block at k=10 and k=256, its two selections,
-              and its engine: FFMA on the CUDA cores for f32 docs,
-              mma.sync on the tensor cores for bf16),
+              SM; the Q >= 5 block at k=256 and, bf16, k=10, its two
+              selections, and its engine: FFMA on the CUDA cores for f32
+              docs, mma.sync on the tensor cores for bf16; and the f32 ring pass,
+              ``score_topk_tiles_ring``, which takes f32 docs at Q >= 5
+              and k <= 14, at Q=32 and 256: no spills, 2 blocks an SM),
               then the kernel against its plain PyTorch version on the card
               at the serve path's shapes and at edge cases (Q=1 twins of
               the batch's; Q >= 5 at k=256: bf16, Q=257, all scores tied,
@@ -50,8 +52,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               weights from the seed, over ``--n-docs`` synthetic texts:
               ``RetrievalService`` add / health / embed / 8 searches, then
               ``TwoTowerSearch`` index + one 256-query ``search_batch``
-              checked against the plain version, then one ``top_k=300``
-              search (the route for k > 256).
+              (twice; both on the ring pass, counted) checked against the
+              plain version, then one ``top_k=300`` search (the route for
+              k > 256).
 5. embed   -- the embedding scatter-add and gather kernels, checked and
               timed as in phase 3, at the train path's shapes, at the
               experiments' shapes and at edge cases (runs that straddle a
@@ -302,27 +305,30 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     from twotowers_tpu_torch.kernels.topk import (
         NO_INDEX, STREAM_MMA_STAGE_BYTES, STREAM_MMA_STAGES, STREAM_WARPS,
         STREAM_WIDE_K, WIDE_K, call_plan, candidates_reference, kth, merge_occupancy,
-        merge_plan, merge_topk_cuda, merge_topk_reference, plan, score_topk_candidates,
-        score_topk_cuda, score_topk_sample, stream_mma_occupancy, stream_mma_smem,
-        stream_occupancy, stream_smem, tiles_occupancy, tiles_smem)
+        merge_plan, merge_topk_cuda, merge_topk_reference, plan, ring_block, ring_occupancy,
+        ring_smem, ring_takes, score_topk_candidates, score_topk_cuda, score_topk_sample,
+        stream_mma_occupancy, stream_mma_smem, stream_occupancy, stream_smem, tiles_occupancy,
+        tiles_smem)
     from twotowers_tpu_torch.ops.topk_score import score_topk, score_topk_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     tiles_blocks, stream_blocks = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        # k=10 takes the narrow selection (one thread a query), k=256 the
-        # wide one (warps); each needs no spills and 2 blocks an SM, 3 at
-        # k=10. f32 docs sum on the CUDA cores, bf16 on the tensor cores
+        # score_topk_tiles: k=10 takes the narrow selection (one thread a
+        # query; bf16 alone, f32 takes the ring below), k=256 the wide one
+        # (warps); each needs no spills and 2 blocks an SM, 3 at k=10. f32
+        # docs sum on the CUDA cores, bf16 on the tensor cores
         engine = "mma.sync m16n8k16 bf16" if dtype == torch.bfloat16 else "fmaf f32"
+        ks = (10, 256) if dtype == torch.bfloat16 else (256,)
         occupancy = {f"k{k}": {**tiles_occupancy(dev, dtype, k),
                                "selection": "wide" if k > WIDE_K else "narrow",
                                "engine": engine}
-                     for k in (10, 256)}
+                     for k in ks}
         tiles_blocks[str(dtype)] = occupancy
         emit("kernels", case="Q >= 5 pass-1 block", dtype=str(dtype), engine=engine,
              **occupancy)
-        for k, block in zip((10, 256), occupancy.values()):
+        for k, block in zip(ks, occupancy.values()):
             if (block["local_bytes"] or block["blocks_per_sm"] < (3 if k == 10 else 2)
                     or block["smem_bytes"] != tiles_smem(k)):
                 raise AssertionError(f"Q >= 5 pass 1 at k={k}: spills, too few blocks "
@@ -363,25 +369,48 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                                      "SM, not topk.stream_mma_smem's bytes or under 18 KB in "
                                      f"flight: {block}")
 
+    # f32 docs at Q >= 5 and k <= WIDE_K take score_topk_tiles_ring: a TMA
+    # ring of doc tiles, fmaf on the CUDA cores, a selection a warp's own. Both
+    # block shapes (4 x 2 warps of queries x docs at Q <= 32, 8 x 1 above): no
+    # spills, topk.ring_smem's bytes and topk.ring_block's shape, 2 blocks an SM
+    ring_blocks = {}
+    for q in (32, 256):
+        block = {**ring_occupancy(dev, q, 10), "selection": "narrow, a warp's own",
+                 "engine": "fmaf f32, TMA ring refilled by each slot's last reader"}
+        ring_blocks[f"q{q}"] = block
+        emit("kernels", case="Q >= 5 pass-1 block", kernel="score_topk_tiles_ring",
+             dtype="torch.float32", q=q, k=10, **block)
+        if (block["local_bytes"] or block["blocks_per_sm"] < 2
+                or block["smem_bytes"] != ring_smem(q)
+                or (block["block_queries"], block["tile_docs"]) != ring_block(q)):
+            raise AssertionError(f"f32 Q >= 5 ring pass at Q={q}: spills, under 2 blocks an "
+                                 f"SM, or not topk.ring_smem's bytes or ring_block's shape: {block}")
+
     def unit(*shape):
         x = torch.randn(*shape, device=dev, generator=gen)
         return x / x.norm(dim=1, keepdim=True)
 
     def check(case, docs, queries, k, n_real=None, exact=False, mma=None):
         """Hold score_topk_cuda against the plain version; ``mma``: whether
-        pass 1 must (True) or must not (False) take score_topk_stream_mma."""
-        before = topk.STREAM_MMA_LAUNCHES
+        pass 1 must (True) or must not (False) take score_topk_stream_mma.
+        Pass 1 takes score_topk_tiles_ring exactly where topk.ring_takes."""
+        before, ring_before = topk.STREAM_MMA_LAUNCHES, topk.RING_LAUNCHES
         got = score_topk_cuda(docs, queries, k, n_real)
         torch.cuda.synchronize()
         if mma is not None and topk.STREAM_MMA_LAUNCHES - before != int(mma):
             raise AssertionError(f"{case}: pass 1 {'did not take' if mma else 'took'} "
                                  "score_topk_stream_mma")
+        ring = ring_takes(docs.dtype, queries.shape[0], k)
+        if topk.RING_LAUNCHES - ring_before != int(ring):
+            raise AssertionError(f"{case}: pass 1 {'did not take' if ring else 'took'} "
+                                 "score_topk_tiles_ring")
         want = score_topk_reference(docs, queries, k, n_real)
         err, swaps = agree(docs, queries, got, want, n_real, rel=0.0 if exact else 1e-5)
         if exact and not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             raise AssertionError(f"{case}: not bit-equal to the plain version")
         emit("kernels", case=case, n=docs.shape[0], d=docs.shape[1], q=queries.shape[0],
-             k=k, dtype=str(docs.dtype), max_abs_err=err, near_tie_swaps=swaps)
+             k=k, dtype=str(docs.dtype), max_abs_err=err, near_tie_swaps=swaps,
+             ring=ring)
         return err
 
     docs = unit(n_docs, 128)
@@ -426,6 +455,24 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
     ints = torch.randint(-2, 3, (n_docs // 4, 64), device=dev, generator=gen).float()
     qints = torch.randint(-2, 3, (64, 64), device=dev, generator=gen).float()
     check("integer-valued", ints, qints, 32, exact=True)
+    # the f32 ring pass (k <= WIDE_K) on integers, bit-equal: both block
+    # shapes, and docs one float past 16-byte alignment (its 4-byte copies)
+    check("integer-valued q64 k14 (ring)", ints, qints, 14, exact=True)
+    check("integer-valued q32 k10 (ring)", ints, qints[:32], 10, exact=True)
+    ints_off32 = ints.view(-1)[1:1 + (ints.shape[0] - 1) * 64].view(-1, 64)
+    check("off alignment q33 k10 f32 (ring, 4-byte copies)", ints_off32, qints[:33], 10,
+          exact=True)
+    del ints_off32
+    for q, k in ((32, 10), (64, 14)):  # its pass 1 alone: each split's top-k
+        got = score_topk_candidates(ints, qints[:q], k, 240_000)
+        pass1, _, split_len = call_plan(ints, q, k)
+        want = candidates_reference(ints, qints[:q], k, split_len, 240_000)
+        if pass1 != topk.PASS_TILES_RING or not (
+                torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"ring pass 1 q{q} k{k}: not the plain per-split top-k")
+        emit("kernels", case=f"ring pass-1 lists q{q} k{k}", n=ints.shape[0], d=64,
+             n_splits=got[0].shape[1], split_len=split_len, bit_equal=True)
     # bf16 docs at Q >= 5 sum on the tensor cores: exact on integers, in
     # another order than cuBLAS on floats (data from its own generator)
     mma_gen = torch.Generator(device=dev).manual_seed(seed + 2)
@@ -699,6 +746,8 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                            for q in (32, 256) for k in (10, 256)},
             "tiles_blocks": tiles_blocks, "stream_blocks": stream_blocks,
             "merge_blocks": merge_blocks, "stream_mma_blocks": mma_blocks,
+            "ring_blocks": ring_blocks,
+            "batch_f32": {f"q{q}": timings[(q, torch.float32, 10)] for q in (32, 256)},
             "stream_bf16": {f"q{q} k{k}": timings[(q, torch.bfloat16, k)]
                             for q in (2, 3, 4) for k in (10, 256)},
             "small_batch_launches": small_launches,
@@ -811,7 +860,7 @@ def serve_phase(card: dict, n_docs: int, seed: int, device="cuda") -> dict:
     exact = [texts[i] for i in rng.choice(n_docs, size=4, replace=False)]
     fresh = synthetic_texts(4, seed + 1)
 
-    topk.LAUNCHES = 0  # the main path starts here
+    topk.LAUNCHES = topk.RING_LAUNCHES = 0  # the main path starts here
     topk_score.TORCH_ROUTE_CALLS = 0
     runtime = ModelRuntime(ckpt, device=device)
     service = RetrievalService(model=runtime, device=device)
@@ -876,6 +925,7 @@ def serve_phase(card: dict, n_docs: int, seed: int, device="cuda") -> dict:
         raise AssertionError(f"top_k=300 scores differ by {wide_err}")
 
     launches = topk.LAUNCHES  # the main path ends here
+    ring_launches = topk.RING_LAUNCHES
     torch_route_calls = topk_score.TORCH_ROUTE_CALLS
 
     q_vecs = search._encode_texts_device(batch_queries, "query")
@@ -887,12 +937,16 @@ def serve_phase(card: dict, n_docs: int, seed: int, device="cuda") -> dict:
     searches = len(exact) + len(fresh) + 1
     if launches < searches:
         raise AssertionError(f"{launches} kernel launches for {searches} searches")
+    if ring_launches != len(batch_ms):  # each 256-query search_batch, f32 at k=10
+        raise AssertionError(f"{ring_launches} score_topk_tiles_ring launches for "
+                             f"{len(batch_ms)} batch searches")
     serve = {"n_docs": n_docs, "setup_s": setup_s, "add_docs_per_s": n_docs / add_s,
              "index_docs_per_s": n_docs / index_s, "search_p50_ms": statistics.median(search_ms),
              "search_ms": search_ms, "search_batch_256_ms": batch_ms[0],
              "search_batch_256_again_ms": batch_ms[1],
              "batch_max_abs_err": err, "batch_near_tie_swaps": swaps,
              "top300_max_abs_err": wide_err, "score_topk_launches": launches,
+             "score_topk_ring_launches": ring_launches,
              "score_topk_torch_route_calls": torch_route_calls, "card": card["nvidia_smi"]}
     emit("serve", **serve)
     return serve
@@ -2663,6 +2717,17 @@ def main() -> int:
             "barred_lists": topk_row["barred_lists"],
             "sample_sums_bit_equal": topk_row["sample_sums"],
             "shape": {"n": args.n_docs, "d": 128}},
+        "batch_f32_ring": {**{name: {key: row[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for name, row in topk_row["batch_f32"].items()},
+            "engine": "fmaf f32 on a TMA ring refilled by each slot's last reader "
+                      "(score_topk_tiles_ring<QW>)",
+            "pass1_blocks": topk_row["ring_blocks"],
+            "launches_serve_batches": serve["score_topk_ring_launches"],
+            "check": "integer-valued bit-equal at Q=32, 64 and off 16-byte alignment; pass 1 "
+                     "bit-equal to candidates_reference at Q=32 k=10 and Q=64 k=14; float "
+                     "by agree at Q=32, 33, 256, 257 and D=100",
+            "shape": {"n": args.n_docs, "d": 128, "k": 10, "dtype": "float32"}},
         "batch_bf16_tensor_cores": {**{name: {key: row[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for name, row in topk_row["batch_bf16"].items()},

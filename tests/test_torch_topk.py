@@ -355,3 +355,22 @@ def test_bf16_docs_at_two_to_four_queries_match_jax(q, k):
     qj = jnp.asarray(queries.numpy())
     _assert_same(got, score_topk_pallas(d, qj, k, tile_n=128, interpret=True), "pallas")
     _assert_same(got, score_topk_xla(d, qj, k), "xla")
+
+
+@pytest.mark.parametrize("q", [5, 33, 64])
+@pytest.mark.parametrize("k", [1, 10, 14])
+def test_f32_batches_at_narrow_k_match_jax(q, k):
+    """The shapes of the f32 ring pass (``score_topk_tiles_ring``: Q >= 5,
+    k <= WIDE_K; on the CPU its plain version): f32 docs, N = 767, D = 100
+    (not a multiple of 4: the ring's 4-byte copies), rows past n_docs = 700
+    masked, inputs from a numpy seed. Scores within rtol 1e-5 (f32 sums in
+    another order), indices exactly, against the Pallas kernel in interpret
+    mode and ``score_topk_xla``."""
+    assert topk.ring_takes(torch.float32, q, k)
+    rng = np.random.default_rng(1000 * q + k)
+    docs = rng.normal(size=(767, 100)).astype(np.float32)
+    queries = rng.normal(size=(q, 100)).astype(np.float32)
+    got = score_topk(torch.from_numpy(docs), torch.from_numpy(queries), k, 700)
+    assert got[0].shape == got[1].shape == (q, k) and int(got[1].max()) < 700
+    for path, want in _jax_paths(docs, queries, k, 700).items():
+        _assert_same(got, want, path)

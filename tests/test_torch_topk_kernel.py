@@ -204,7 +204,9 @@ def test_stream_smem_fits_a_block_at_every_width(q, k):
 
 
 CONSTANTS = ["STREAM_WIDE_K", "WIDE_K", "STREAM_QUEUE", "STREAM_WARPS", "MAX_K",
-             "MAX_SPLITS", "MMA_DEPTH", "TILE_QUEUE", "STREAM_MMA_STAGES", "STREAM_MMA_DEPTH"]
+             "MAX_SPLITS", "MMA_DEPTH", "TILE_QUEUE", "STREAM_MMA_STAGES", "STREAM_MMA_DEPTH",
+             "RING_WARPS", "RING_STAGES", "RING_DEPTH", "RING_SMALL_Q", "RING_LIST",
+             "RING_LANE_DOCS", "PASS_TILES_RING"]
 
 
 @pytest.mark.parametrize("name", CONSTANTS)
@@ -894,6 +896,8 @@ def test_batch_pass_one_lists_are_each_splits_top_k(cuda, q, k, dtype):
     per_sm = topk.tiles_occupancy(cuda, dtype, k)["blocks_per_sm"]
     sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
     split_len = topk.plan(q, docs.shape[0], sm_count, per_sm)[2]
+    if topk.ring_takes(dtype, q, k):  # the ring pass plans by its own block
+        split_len = topk.call_plan(docs, q, k)[2]
     want_v, want_i = topk.candidates_reference(docs, queries, k, split_len, n_docs)
     assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
     assert torch.equal(got_i, want_i)
@@ -1366,3 +1370,369 @@ def test_every_timed_shape_has_its_queries():
     shapes = (variants.SHAPES + variants.K_SWEEP + variants.WIDE_SHAPES + variants.BAR_SWEEP
               + variants.ORDERED)
     assert {shape[0] for shape in shapes} <= set(variants.QUERY_COUNTS)
+
+
+# ---- score_topk_tiles_ring: f32 docs at Q >= 5 and k <= WIDE_K ----------------
+
+def test_ring_pass_code_mirrors_the_cuda_source():
+    """score_topk_bar_launch's pass1 code of the ring pass is the wrapper's."""
+    source = (Path(topk.__file__).resolve().parents[1] / "csrc" / "score_topk.cu").read_text()
+    assert re.findall(r"^constexpr int PASS_TILES_RING = (\d+);", source, flags=re.M) == ["4"]
+    assert topk.PASS_TILES_RING not in (topk.PASS_STREAM, topk.PASS_STREAM_MMA, topk.PASS_TILES)
+
+
+def test_f32_narrow_calls_reach_no_pass_but_the_ring():
+    """score_topk_bar_launch refuses f32 docs on PASS_TILES at k <= WIDE_K
+    (the ring's calls), so score_topk_tiles<float, false> runs nowhere."""
+    source = (Path(topk.__file__).resolve().parents[1] / "csrc" / "score_topk.cu").read_text()
+    launch = source[source.index("int score_topk_bar_launch("):]
+    launch = launch[:launch.index("return (int)cudaErrorInvalidValue;")]
+    assert "|| (pass1 == PASS_TILES && !docs_bf16 && k <= WIDE_K)" in launch
+
+
+@pytest.mark.parametrize("q,n,splits", [
+    (257, 1_000_000, 53), (256, 1_000_000, 66), (33, 1_000_000, 261), (5, 250_000, 245)])
+def test_ring_plan_is_the_tiles_rule_under_the_ring_block(q, n, splits):
+    """The ring's plan is plan()'s one rule (the split count rounded up)
+    under the block shape the ring reports, at 2 blocks an SM on 132 SMs:
+    Q=257 takes 5 query blocks x 53 splits on 264 places."""
+    block_queries, tile_docs = topk.ring_block(q)
+    assert topk.plan(q, n, 132, 2, block_queries, tile_docs)[1] == splits
+
+
+@pytest.mark.parametrize("q,block_queries,tile_docs,nbytes", [
+    (5, 32, 256, 82_992), (32, 32, 256, 82_992), (33, 64, 128, 58_416),
+    (256, 64, 128, 58_416), (257, 64, 128, 58_416)])
+def test_ring_smem_counts_stages_and_lists(q, block_queries, tile_docs, nbytes):
+    """The ring pass's shared bytes (score_topk.cu's ring_smem_q): 1,024 to
+    align the ring (TMA's 64-byte swizzle is read off the address), 4
+    stages of the tile's doc rows and the block's query rows, 16 floats each
+    ((256 + 32) x 64 bytes up to 32 queries, (128 + 64) x 64 above), 8 warps
+    x 8 lists of 16 values and indices (8,192 bytes), then a full mbarrier
+    and a count of readers a stage (48). Both shapes leave room for 2 blocks
+    an SM, 16 warps (the parent's pass had 12)."""
+    assert topk.ring_block(q) == (block_queries, tile_docs)
+    assert topk.ring_smem(q) == nbytes
+    assert nbytes == 1024 + 4 * (4 * (tile_docs + block_queries) * 16 + 2 * 8 * 8 * 16) + 48
+    assert 2 * (nbytes + BLOCK_RESERVED) <= SM_SHARED
+
+
+def _ring_unit(r, u):  # score_topk.cu:ring_unit, float offset of unit u of doc row r
+    return r * topk.RING_DEPTH + 4 * (u ^ ((r >> 1) & 3))
+
+
+def test_ring_stage_layout_is_free_of_bank_conflicts():
+    """A stage's doc rows: unit u of row r at float ring_unit(r, u). Each
+    quarter-warp of a lane's 16-byte reads (rows lane + 32 jj, one unit)
+    and each 8 threads' cp.async copies (row e / 4, unit e % 4 of e = tid
+    + 256 i) fall on the 8 bank groups once; doc jj of a lane is 32 jj rows
+    past doc 0 at every unit, so its reads are one address plus constants;
+    a stage's units are each written once; and the swizzle is TMA's 64-byte
+    one (address bits 4-5 XOR bits 7-8, the ring 1,024-byte aligned)."""
+    units = topk.RING_DEPTH // 4
+    for u in range(units):
+        for lanes in (range(8 * j, 8 * j + 8) for j in range(4)):
+            for jj in range(8):
+                assert len({_ring_unit(lane + 32 * jj, u) // 4 % 8 for lane in lanes}) == 8
+        for lane in range(32):
+            for jj in range(8):
+                assert (_ring_unit(lane + 32 * jj, u)
+                        == _ring_unit(lane, u) + 32 * jj * topk.RING_DEPTH)
+    for tile_docs in (256, 512):
+        for e0 in range(0, tile_docs * units, 8):
+            assert len({_ring_unit(e // units, e % units) // 4 % 8
+                        for e in range(e0, e0 + 8)}) == 8
+        assert (sorted(_ring_unit(r, u) for r in range(tile_docs) for u in range(units))
+                == list(range(0, tile_docs * topk.RING_DEPTH, 4)))
+    for r in range(512):
+        for u in range(units):
+            plain = 64 * r + 16 * u  # the byte of unit u of row r, unswizzled
+            assert 4 * _ring_unit(r, u) == plain ^ (((plain >> 7) & 3) << 4)
+
+
+@pytest.mark.parametrize("q", [5, 32, 33, 256, 257])
+def test_ring_block_covers_each_query_and_doc_of_a_tile_once(q):
+    """Warp (qw, dw) = (warp % QW, warp / QW) of the 8 holds queries 8 qw ..
+    8 qw + 7 and, lane l, docs 32 RING_LANE_DOCS dw + 32 jj + l of a tile:
+    every (query, doc) pair of the block's queries and tile once."""
+    block_queries, tile_docs = topk.ring_block(q)
+    query_warps, lane_docs = block_queries // 8, topk.RING_LANE_DOCS
+    pairs = [(8 * (w % query_warps) + i, 32 * lane_docs * (w // query_warps) + 32 * jj + lane)
+             for w in range(topk.RING_WARPS) for lane in range(32)
+             for i in range(8) for jj in range(lane_docs)]
+    assert len(set(pairs)) == len(pairs) == block_queries * tile_docs
+
+
+@pytest.mark.parametrize("dtype,q,k,takes", [
+    (torch.float32, 5, 10, True), (torch.float32, 256, 1, True), (torch.float32, 33, 14, True),
+    (torch.float32, 5000, 5, True), (torch.float32, 256, 15, False),
+    (torch.float32, 32, 256, False), (torch.bfloat16, 256, 10, False),
+    (torch.bfloat16, 5, 14, False), (torch.float32, 4, 10, False), (torch.float32, 1, 10, False)])
+def test_route_rule_sends_f32_batches_at_narrow_k_to_the_ring(dtype, q, k, takes):
+    """f32 docs at Q >= 5 and k <= WIDE_K take score_topk_tiles_ring,
+    whatever D and alignment; k > WIDE_K (the wide selection and its bar),
+    bf16 docs (the tensor cores) and Q <= 4 keep their passes."""
+    assert topk.ring_takes(dtype, q, k) is takes
+
+
+@pytest.mark.parametrize("q", [5, 32, 33, 64, 256, 257, 5000])
+@pytest.mark.parametrize("n", [1_000_000, 999_983, 200])
+@pytest.mark.parametrize("blocks", [1, 2, 3])
+def test_plan_of_the_ring_makes_one_wave(q, n, blocks):
+    """Under the ring's block (its queries and tile, as its occupancy entry
+    reports them) the plan covers the docs in whole tiles and makes about
+    one wave: short of a query block at most past the blocks that fit on
+    132 SMs, and at 1M docs and up to 8 query blocks at least 90% of them
+    (splits are whole tiles of up to 512 docs: 245 of 264 at Q=32)."""
+    block_queries, tile_docs = topk.ring_block(q)
+    rows, n_splits, split_len = topk.plan(q, n, 132, blocks, block_queries, tile_docs)
+    q_blocks = -(-q // block_queries)
+    assert rows == 8 and split_len % tile_docs == 0
+    assert (n_splits - 1) * split_len < n <= n_splits * split_len
+    assert 1 <= n_splits <= topk.MAX_SPLITS
+    assert q_blocks * n_splits < 132 * blocks + q_blocks
+    if n >= 1_000_000 and q_blocks <= 8:
+        assert q_blocks * n_splits >= 0.9 * 132 * blocks
+
+
+def _ranks_before(a, b):  # score_topk.cu:ranks_before on (value, index) pairs
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _ring_insert(lanes, pair, k):
+    """score_topk.cu:ring_insert on a warp's 32 lanes of (value, index)."""
+    p = sum(1 for e in range(32) if e < k and _ranks_before(lanes[e], pair))
+    up = [lanes[0]] + lanes[:31]  # __shfl_up_sync by 1: lane 0 keeps its own
+    return [pair if e == p else up[e] if e > p else lanes[e] for e in range(32)]
+
+
+def _ring_rounds(lanes, survivors, k):
+    """score_topk.cu:ring_rounds: k rounds, each every lane's best candidate
+    left (its list pair below k, its surviving docs), the warp's best of
+    them to lane r, dropped by the lane that held it."""
+    pad = (-math.inf, topk.NO_INDEX)
+    own = [lane < k for lane in range(32)]
+    left = [[pair for pair in survivors if pair[1] % 32 == lane] for lane in range(32)]
+    out = [pad] * 32
+    for r in range(k):
+        best = []
+        for lane in range(32):
+            b = lanes[lane] if own[lane] else pad
+            for pair in left[lane]:
+                if _ranks_before(pair, b):
+                    b = pair
+            best.append(b)
+        win = best[0]
+        for b in best[1:]:
+            if _ranks_before(b, win):
+                win = b
+        out[r] = win
+        for lane in range(32):
+            if best[lane] == win:
+                if own[lane] and lanes[lane] == win:
+                    own[lane] = False
+                elif win in left[lane]:
+                    left[lane].remove(win)
+    return out
+
+
+def _ring_warp_lists(scores, k, t0s, end, n_docs):
+    """score_topk.cu:ring_select over a warp's tiles, lane by lane: scores[t]
+    is (8 queries, jj, 32 lanes) of tile t, doc t0s[t] + 32 jj + lane.
+    Returns each query's list of k pairs as the kernel writes it."""
+    pad = (-math.inf, topk.NO_INDEX)
+    lists = [[pad] * topk.RING_LIST for _ in range(8)]
+    for t0, tile in zip(t0s, scores):
+        for i in range(8):
+            bar = lists[i][k - 1]
+            tops = [max([-1e30] + [float(tile[i, jj, lane]) for jj in range(tile.shape[1])])
+                    for lane in range(32)]
+            if not any(top >= bar[0] for top in tops):  # no score reaches the bar's value
+                continue
+            survivors = []
+            for jj in range(tile.shape[1]):
+                for lane in range(32):
+                    doc = t0 + 32 * jj + lane
+                    s = float(tile[i, jj, lane]) if doc < n_docs else -1e30
+                    if doc < end and _ranks_before((s, doc), bar):
+                        survivors.append((s, doc))
+            if not survivors:
+                continue
+            lanes = [lists[i][e % topk.RING_LIST] for e in range(32)]
+            if len(survivors) > 2 * k:  # a flood: k rounds of the warp's best
+                lanes = _ring_rounds(lanes, survivors, k)
+            else:
+                for pair in survivors:  # jj, then lane: doc order
+                    lanes = _ring_insert(lanes, pair, k)
+            lists[i][:k] = lanes[:k]
+    return [lst[:k] for lst in lists]
+
+
+@pytest.mark.parametrize("kind", ["random", "integer", "tied", "signed-zero"])
+@pytest.mark.parametrize("k", [1, 10, 14])
+def test_ring_selection_keeps_each_querys_top_k(kind, k):
+    """The ring's selection, run lane by lane on a warp's 3 tiles (the last
+    cut short by `end`, rows past n_docs masked; the first tile's flood
+    merged by rounds, later survivors by rounds or inserts), then a second
+    doc warp's lists inserted as at the split's end, leaves each query's
+    top-k of its docs by ranks_before, best first: ties to the lower index,
+    -0.0 tied with +0.0."""
+    rng = np.random.default_rng(k)
+    shape = (3, 8, topk.RING_LANE_DOCS, 32)
+    scores = {"random": rng.normal(size=shape), "integer": rng.integers(-2, 3, size=shape),
+              "tied": np.ones(shape),
+              "signed-zero": np.where(rng.random(shape) < 0.5, -0.0, 0.0)}[kind]
+    scores = scores.astype(np.float32)
+    warp_docs = 32 * topk.RING_LANE_DOCS  # a tile of two doc warps
+    end, n_docs = 4 * warp_docs + 200, 4 * warp_docs + 150
+    firsts = ([0, 2 * warp_docs, 4 * warp_docs], [warp_docs, 3 * warp_docs, 5 * warp_docs])
+    lists = [_ring_warp_lists(scores, k, firsts[0], end, n_docs),
+             _ring_warp_lists(scores[:, ::-1], k, firsts[1], end, n_docs)]
+    for i in range(8):
+        lanes = lists[0][i] + [(-math.inf, topk.NO_INDEX)] * (32 - k)
+        for pair in lists[1][i]:
+            lanes = _ring_insert(lanes, pair, k)
+        pairs = []
+        for w, t0s in enumerate(firsts):
+            tiles = scores if w == 0 else scores[:, ::-1]
+            for t, t0 in enumerate(t0s):
+                for jj in range(topk.RING_LANE_DOCS):
+                    for lane in range(32):
+                        doc = t0 + 32 * jj + lane
+                        if doc < end:
+                            pairs.append((float(tiles[t, i, jj, lane]) if doc < n_docs
+                                          else -1e30, doc))
+        want = sorted(pairs, key=lambda p: (-p[0], p[1]))[:k]
+        assert lanes[:k] == want
+
+
+def _ring_bit_equal(docs, queries, k, n_docs=None):
+    """score_topk on f32 docs through the ring pass: one launch, pass 1 on
+    score_topk_tiles_ring, the plain version's result bit for bit."""
+    before, ring_before = topk.LAUNCHES, topk.RING_LAUNCHES
+    got = _bit_equal(docs, queries, k, n_docs)
+    assert (topk.LAUNCHES - before, topk.RING_LAUNCHES - ring_before) == (1, 1)
+    return got
+
+
+RING_EDGE_CASES = [(q, dim, k, off) for q in (5, 33, 257) for dim in (1, 100, 128, 129, 1024)
+                   for k in (1, 10, 14) for off in (-1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,dim,k,off", RING_EDGE_CASES)
+def test_ring_kernel_is_the_plain_version_bit_for_bit(cuda, q, dim, k, off):
+    """The ring pass at N = 256 m +- 1 (a ragged last tile of either
+    block shape), D across its 16-column stages (D=1, 129: 4-byte copies;
+    100: a zero-filled unit), k up to WIDE_K, Q=5 and 33 (one query block,
+    4 x 2 and 8 x 1 warps) and 257 (a ragged last block). Integer-valued
+    inputs sum exactly in any order: the plain version's result bit for
+    bit."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 7907 + dim * 37 + k + off)
+    n = 256 * (150 if dim == 1024 else 600) + off
+    docs = torch.randint(-2, 3, (n, dim), device=cuda, generator=gen).float()
+    queries = torch.randint(-2, 3, (q, dim), device=cuda, generator=gen).float()
+    _ring_bit_equal(docs, queries, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 32, 257])
+@pytest.mark.parametrize("k", [1, 14])
+def test_ring_kernel_masks_rows_past_n_docs(cuda, q, k):
+    """Rows at or past n_docs score -1e30 in the ring pass too, though
+    they would win unmasked."""
+    gen = torch.Generator(device=cuda).manual_seed(q + k)
+    docs = torch.randint(-2, 3, (256 * 40 + 1, 64), device=cuda, generator=gen).float()
+    docs[5000:] = 50.0
+    queries = torch.randint(-2, 3, (q, 64), device=cuda, generator=gen).float()
+    got_s, _ = _ring_bit_equal(docs, queries, k, 5000)
+    assert bool((got_s < 1e4).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 33, 257])
+@pytest.mark.parametrize("k", [1, 10, 14])
+def test_ring_kernel_breaks_ties_to_the_lower_index(cuda, q, k):
+    """Every score ties (and zeros of either sign tie): the first k docs in
+    order, bit for bit the plain version's."""
+    docs = torch.zeros(8192, 16, device=cuda)
+    docs[:, 0] = 1.0
+    queries = torch.zeros(q, 16, device=cuda)
+    queries[:, 0] = 1.0
+    _, got_i = _ring_bit_equal(docs, queries, k)
+    assert torch.equal(got_i.cpu(), torch.arange(k, dtype=torch.int32).repeat(q, 1))
+    signed = torch.zeros(8192, 16, device=cuda)
+    signed[1::2, 0] = -0.0
+    _, got_i = _ring_bit_equal(signed, queries, k)
+    assert torch.equal(got_i.cpu(), torch.arange(k, dtype=torch.int32).repeat(q, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 33, 257])
+@pytest.mark.parametrize("dim", [64, 100])
+def test_ring_kernel_reads_docs_off_16_byte_alignment(cuda, q, dim):
+    """Docs and queries viewed one float past a 16-byte boundary take the
+    ring's 4-byte copies: still the ring pass, still bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 3 + dim)
+    n = 256 * 200 + 1
+    flat = torch.randint(-2, 3, (n * dim + 1,), device=cuda, generator=gen).float()
+    docs = flat[1:].view(n, dim)
+    qflat = torch.randint(-2, 3, (q * dim + 1,), device=cuda, generator=gen).float()
+    queries = qflat[1:].view(q, dim)
+    assert docs.data_ptr() % 16 != 0 and queries.data_ptr() % 16 != 0
+    _ring_bit_equal(docs, queries, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 32, 33, 257])
+@pytest.mark.parametrize("k", [1, 10, 14])
+def test_ring_pass_one_lists_are_each_splits_top_k(cuda, q, k):
+    """Pass 1 alone on the ring (score_topk_candidates) bit for bit the
+    plain per-split top-k under the call's plan, rows past n_docs masked,
+    a split shorter than k padded (integer-valued inputs)."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 53 + k)
+    docs = torch.randint(-2, 3, (100_003, 64), device=cuda, generator=gen).float()
+    queries = torch.randint(-2, 3, (q, 64), device=cuda, generator=gen).float()
+    ring_before = topk.RING_LAUNCHES
+    got_v, got_i = topk.score_topk_candidates(docs, queries, k, 99_000)
+    assert topk.RING_LAUNCHES == ring_before + 1
+    pass1, _, split_len = topk.call_plan(docs, q, k)
+    assert pass1 == topk.PASS_TILES_RING
+    want_v, want_i = topk.candidates_reference(docs, queries, k, split_len, 99_000)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [32, 256, 33, 257])
+@pytest.mark.parametrize("off", [-1, 1])
+def test_ring_kernel_float_data_agrees(cuda, q, off):
+    """Float data at D=128 over N = 256 m +- 1: each sum is an IEEE f32
+    fmaf chain in ascending d, another order than cuBLAS's, so scores
+    within rtol 1e-5, atol 1e-6 and indices equal but for near-ties
+    (topk.agree)."""
+    gen = torch.Generator(device=cuda).manual_seed(q + off)
+    n = 256 * 2000 + off
+    docs = torch.randn(n, 128, device=cuda, generator=gen)
+    docs /= docs.norm(dim=1, keepdim=True)
+    queries = torch.randn(q, 128, device=cuda, generator=gen)
+    queries /= queries.norm(dim=1, keepdim=True)
+    ring_before = topk.RING_LAUNCHES
+    got = score_topk(docs, queries, 10)
+    torch.cuda.synchronize()
+    assert topk.RING_LAUNCHES == ring_before + 1
+    topk.agree(docs, queries, got, score_topk_reference(docs, queries, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 32, 33, 256])
+@pytest.mark.parametrize("k", [1, 10, 14])
+def test_ring_block_fits_without_spills(cuda, q, k):
+    """Both block shapes of the ring pass: no spills, the shared bytes and
+    the shape of topk.ring_smem and topk.ring_block, and 2 blocks an SM
+    (16 warps)."""
+    block = topk.ring_occupancy(cuda, q, k)
+    assert block["local_bytes"] == 0
+    assert block["smem_bytes"] == topk.ring_smem(q)
+    assert (block["block_queries"], block["tile_docs"]) == topk.ring_block(q)
+    assert block["blocks_per_sm"] >= 2

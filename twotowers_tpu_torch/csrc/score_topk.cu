@@ -13,8 +13,8 @@
 //  1. Grid (query block x doc split): each block keeps the top-k of its
 //     split and writes it to (Q, n_splits, k) scratch, padded with
 //     (-inf, INT_MAX). Q <= 4 takes score_topk_stream (bf16 docs at Q =
-//     2-4 score_topk_stream_mma, where aligned), Q >= 5 score_topk_tiles;
-//     all are below.
+//     2-4 score_topk_stream_mma, where aligned), Q >= 5 score_topk_tiles
+//     (f32 docs at k <= WIDE_K score_topk_tiles_ring); all are below.
 //  2. Pass 2 (launch_merge) merges each query's n_splits sorted lists into
 //     its k best by a fixed tree of pairwise merges in shared memory.
 //
@@ -357,7 +357,73 @@
 //    docs stored in random order), the merges at three inlined sites or at one site
 //    with selects (up to 7% slower in bf16, 4% faster in f32 at Q=256), and
 //    sorting with pair E lane + t in a lane (244 registers, slower).
+//
+// score_topk_tiles_ring (f32 docs at Q >= 5 and k <= WIDE_K: every batch
+// search; kernels/topk.py's ring_takes routes them all here, aligned or
+// not). The bound is score_topk_tiles': 0.98 ms of f32 FMAs at Q=256, N=1M,
+// D=128. score_topk_tiles<float, false> took 2.573 ms there, its product
+// alone (topk_variants.py, variant "selection cut") 2.062: 155 registers, 3
+// blocks (12 warps) an SM, each 16-deep chunk staged through 9 registers a
+// thread and stored transposed one float at a time, 13 block barriers a
+// tile, and no FMA in the block while one thread a query insertion-sorted.
+//  - Doc tiles straight into a ring of RING_STAGES stages of RING_DEPTH =
+//    16 columns, doc-major: rows of 64 bytes, units of 16 bytes
+//    XOR-swizzled by (row / 2) % 4 (ring_unit: TMA's 64-byte swizzle), the
+//    block's query rows after them. Where D % 4 == 0 and the rows are
+//    16-byte aligned, one thread copies a stage by TMA (one box of the
+//    docs, one of the queries; zeros past N, the queries and D); else
+//    every thread copies 4 bytes at a time by cp.async. Each stage has a
+//    full mbarrier (the copies landed); the warps count themselves as its
+//    readers, and the last refills the slot. There is no block barrier in
+//    the loop: a warp that selects falls behind by up to RING_STAGES
+//    stages while the others go on (the cp.async fallback keeps one a
+//    stage). Copied instead by every thread, 16 bytes a cp.async, with one
+//    block barrier a stage (topk_variants.py, variant "ring by cp.async"),
+//    the ring is 11-12% slower: Q=256 2.263 ms against 2.023, Q=32 0.395
+//    against 0.356, in one call.
+//  - 8 warps a block: 8 warps of queries x 1 of docs (64 queries against
+//    tiles of 128 docs) above RING_SMALL_Q = 32 queries, else 4 x 2 (32
+//    queries, tiles of 256), so that a 32-query call idles no warp (8 x 1
+//    at every Q: Q=32 0.407 ms against 0.356; 4 x 2 at every Q: Q=33 0.598
+//    against 0.501, Q=257 3.166 against 2.468; variants "ring of 8 / 4
+//    query warps at every Q"). Each lane keeps 8 queries x RING_LANE_DOCS
+//    = 4 docs (rows lane + 32 jj) in registers: a unit of 4 columns is 8
+//    broadcast 16-byte reads of the queries and 4 of the lane's doc rows
+//    for 128 FMAs, the next unit's docs read ahead of this unit's FMAs,
+//    which go column by column so that consecutive FMAs share a doc value
+//    (ptxas reuses its register). 8 docs a lane (64 sums) spill under the
+//    launch bound of 2 blocks an SM.
+//  - The product stays IEEE f32 on the CUDA cores: each (query, doc) sum is
+//    one fmaf chain in ascending column from 0.f, as score_topk_tiles sums
+//    it, over the same zero columns past D (RING_DEPTH = BK: an fmaf of
+//    zeros turns a sum of -0 into +0), so every output is
+//    score_topk_tiles' bit for bit.
+//  - The selection, per warp with __syncwarp alone: each query's sorted
+//    list of k <= RING_LIST pairs, padded with (-inf, NO_INDEX), in the
+//    warp's own shared memory; its pair k - 1 is the bar. A query goes on
+//    only where some lane's largest score reaches the bar's value; its list
+//    is then read into lanes 0 .. k - 1, its lanes vote their scores, and
+//    each survivor takes its place by a ballot and one shuffle up
+//    (ring_insert), or, above 2k survivors (a split's first tile, where
+//    every doc beats the pad), k rounds of the warp's best merge them
+//    (ring_rounds). At the split's end the doc warps' lists of a query
+//    merge by the same inserts and each list goes to cand_v / cand_i as
+//    before: pass 2 is unchanged.
+//  - ptxas: 128 registers, no spills, 2 blocks (16 warps) an SM at 58,416
+//    (Q > 32) and 82,992 bytes (Q <= 32); SASS: 512 FFMA, one stage's
+//    product. Times at N=1M, D=128, k=10, both passes, against the parent
+//    in one run (topk_variants.py --ring --against a git archive of the
+//    parent, NVIDIA H100 80GB HBM3, 700.00 W): Q=256 2.594 -> 2.023 ms,
+//    Q=32 0.487 -> 0.356, Q=257 2.882 -> 2.468, Q=33 0.792 -> 0.501, Q=5
+//    0.388 -> 0.236 (torch.topk of the matmul 4.856, 0.800, 5.249, 0.943,
+//    0.443); outputs the parent's bit for bit. The product alone
+//    ("selection cut") 1.870 ms at Q=256, the product loop alone (no copy
+//    after the first ring, no wait, no selection: "ring product loop
+//    alone") 1.667: 59% of the FFMA rate. Rounding the split count down
+//    (one wave at Q=257: 52 splits, not 53) was 2% slower there.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -370,6 +436,7 @@ namespace {
 constexpr int THREADS1 = 128;       // score_topk_tiles: 4 warps
 // score_topk_bar_launch's pass1: which kernel runs pass 1 (kernels/topk.py)
 constexpr int PASS_STREAM = 1, PASS_STREAM_MMA = 2, PASS_TILES = 8;
+constexpr int PASS_TILES_RING = 4;  // score_topk_tiles_ring: f32 docs, Q >= 5, k <= WIDE_K
 constexpr int MERGE_THREADS = 512;  // pass 2
 constexpr int MAX_SPLITS = 1024;
 constexpr float MASKED = -1e30f;
@@ -1881,6 +1948,481 @@ score_topk_stream_mma(const __nv_bfloat16* __restrict__ docs,
                     cand_i + (long long)split * k, (long long)gridDim.x * k, tid);
 }
 
+// score_topk_tiles_ring (f32 docs, Q >= 5, k <= WIDE_K; see the note): the
+// block's warps multiply the stages of one ring (TMA copies, or cp.async
+// where TMA cannot take the rows) and each selects for its own queries.
+constexpr int RING_WARPS = 8;          // warps a block
+constexpr int RING_THREADS = 32 * RING_WARPS;
+constexpr int RING_STAGES = 4;         // stages of the block's ring
+constexpr int RING_DEPTH = 16;         // columns of a stage: 4 units of 16 bytes a row
+constexpr int RING_LANE_DOCS = 4;      // docs a lane multiplies (x 8 queries): a warp's 32 x it
+constexpr int RING_SMALL_Q = 32;       // Q up to this: 4 warps of queries x 2 of docs, else 8 x 1
+constexpr int RING_LIST = 16;          // places of a query's list in a warp (k <= WIDE_K)
+constexpr int RING_MIN_BLOCKS = 2;     // the launch bound's blocks an SM: 128 registers a thread
+static_assert(RING_STAGES >= 2, "a stage is copied while another is multiplied");
+static_assert(RING_DEPTH == BK, "D is padded to score_topk_tiles' chunks: the same fmaf chains");
+static_assert(RING_LANE_DOCS >= 1 && RING_LANE_DOCS <= 8, "a lane's docs are rows lane + 32 jj");
+static_assert(RING_LIST > WIDE_K && RING_LIST <= 32, "a list lies across a warp's lanes");
+
+// The block of QW warps of queries (8 queries each) x DW warps of docs (32
+// RING_LANE_DOCS docs each): BQ queries against tiles of BN docs, STAGE
+// floats a stage (the tile's doc rows, then the block's query rows,
+// RING_DEPTH each).
+template <int QW>
+struct Ring {
+    static constexpr int DW = RING_WARPS / QW;
+    static constexpr int WARP_DOCS = 32 * RING_LANE_DOCS;
+    static constexpr int BQ = 8 * QW;
+    static constexpr int BN = WARP_DOCS * DW;
+    static constexpr int STAGE = (BN + BQ) * RING_DEPTH;
+    static_assert(QW * DW == RING_WARPS, "the warps tile the block");
+};
+
+// Float offset in a stage of unit u (columns 4u .. 4u + 3) of doc row r:
+// rows of 64 bytes, units XOR-swizzled by (r / 2) % 4 (TMA's 64-byte
+// swizzle on a 1,024-byte aligned ring). A lane reads rows lane + 32 jj, so
+// the 8 rows of a quarter-warp's 16-byte reads, and the 2 rows x 4 units of
+// 8 threads' copies, fall on all 32 banks.
+__host__ __device__ constexpr int ring_unit(int r, int u) {
+    return r * RING_DEPTH + 4 * (u ^ ((r >> 1) & 3));
+}
+
+constexpr bool ring_rows_apart() {
+    for (int u = 0; u < RING_DEPTH / 4; ++u)
+        for (int l0 = 0; l0 < 32; l0 += 8) {
+            unsigned groups = 0;
+            for (int l = l0; l < l0 + 8; ++l) groups |= 1u << (ring_unit(l, u) / 4 % 8);
+            if (groups != 0xffu) return false;
+            for (int jj = 0; jj < 8; ++jj)
+                if (ring_unit(l0 + 32 * jj, u) != ring_unit(l0, u) + 32 * jj * RING_DEPTH)
+                    return false;
+        }
+    return true;
+}
+static_assert(ring_rows_apart(), "a quarter-warp's reads meet all 32 banks; doc jj is 32 jj rows on");
+
+// The ring's mbarriers (shared addresses) and its TMA copies. A wait spins
+// on try_wait until the barrier's phase of that parity has completed.
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+    asm volatile("{\n.reg .pred done;\nRING_WAIT:\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+                 "@!done bra RING_WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA copies to land.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+    asm volatile("{\n.reg .b64 state;\n"
+                 "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// An arrival when this thread's cp.async copies so far have landed (counted
+// in the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// The box of `map` at column x, row y into shared address dst (TMA), its
+// bytes counted on barrier bar; zeros where the box leaves the matrix.
+__device__ __forceinline__ void tma_box(unsigned dst, const CUtensorMap* map, int x, int y,
+                                        unsigned bar) {
+    asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1, {%2, %3}], [%4];\n"
+                 :: "r"(dst), "l"(map), "r"(x), "r"(y), "r"(bar) : "memory");
+}
+
+// Copy 16 bytes from `src` to shared address dst by cp.async as four 4-byte
+// copies, element j where `live` and j < cols, else zeros (src-size 0 reads
+// nothing; `base` stands in): the ring's copies where TMA cannot take the
+// matrix (D % 4 != 0, or a pointer off 16-byte alignment).
+__device__ __forceinline__ void ring_copy4(unsigned dst, const float* src, const float* base,
+                                           bool live, int cols) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const bool on = live && j < cols;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(dst + 4 * j), "l"(on ? src + j : base), "r"(on ? 4 : 0) : "memory");
+    }
+}
+
+// One stage's product for a warp: acc[i][jj] (query i, doc jj = row lane +
+// 32 jj of d_rows) gains the stage's RING_DEPTH columns, one fmaf a column
+// in ascending order. For each unit of 4 columns a lane reads its 8
+// queries' 16 bytes (one address across the warp: broadcasts) and its
+// docs' 16 bytes, the next unit's docs ahead of this unit's FMAs; then
+// column by column, doc by doc, the 8 queries: consecutive FMAs share the
+// doc's value (ptxas reuses its register) and a sum's next FMA comes 32 on.
+__device__ __forceinline__ void ring_product(float (&acc)[8][RING_LANE_DOCS], const float* d_rows,
+                                             const float* q_rows, int lane) {
+    constexpr int UNITS = RING_DEPTH / 4;
+    auto doc = [&](int u, int jj) {
+        return *reinterpret_cast<const float4*>(d_rows + ring_unit(lane, u) + 32 * jj * RING_DEPTH);
+    };  // query rows are swizzled as doc rows: the warp's first is a multiple of 8
+    float4 d[RING_LANE_DOCS];
+#pragma unroll
+    for (int jj = 0; jj < RING_LANE_DOCS; ++jj) d[jj] = doc(0, jj);
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+        float4 q[8], next[RING_LANE_DOCS];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+            q[i] = *reinterpret_cast<const float4*>(q_rows + ring_unit(i, u));
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+            if (u + 1 < UNITS) next[jj] = doc(u + 1, jj);
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i][jj] = fmaf(q[i].x, d[jj].x, acc[i][jj]);
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i][jj] = fmaf(q[i].y, d[jj].y, acc[i][jj]);
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i][jj] = fmaf(q[i].z, d[jj].z, acc[i][jj]);
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i][jj] = fmaf(q[i].w, d[jj].w, acc[i][jj]);
+        if (u + 1 < UNITS)
+#pragma unroll
+            for (int jj = 0; jj < RING_LANE_DOCS; ++jj) d[jj] = next[jj];
+    }
+}
+
+// Insert (sv, sx) into a list held across a warp's lanes (lane e < k holds
+// pair e, best first): a ballot counts the pairs that rank before it, and
+// the lanes from there on take their lower neighbour's pair. A pair that
+// ranks after pair k - 1 changes no lane below k.
+__device__ __forceinline__ void ring_insert(float& v, int& x, float sv, int sx, int k, int lane) {
+    const int p = __popc(__ballot_sync(FULL, lane < k && ranks_before(v, x, sv, sx)));
+    const float up_v = __shfl_up_sync(FULL, v, 1);
+    const int up_x = __shfl_up_sync(FULL, x, 1);
+    if (lane == p) {
+        v = sv;
+        x = sx;
+    } else if (lane > p) {
+        v = up_v;
+        x = up_x;
+    }
+}
+
+// The k best of a list held across a warp's lanes (lane e < k: pair e) and
+// the survivors (bit jj of `mine`: score s[jj] of doc doc0 + 32 jj, the
+// lane's own), into the same lanes: k rounds, each a lane's best candidate
+// left, the warp's best of those (the largest score by a butterfly of
+// fmaxf; among the lanes that hold it, the lowest index, by a second
+// butterfly only where several do: -0 ties with +0 as in ranks_before),
+// kept by lane r with the bits of the lane that held it, and dropped there.
+// Pads (-inf, NO_INDEX) fill a round with no candidate left.
+__device__ __forceinline__ void ring_rounds(float& v, int& x, const float (&s)[RING_LANE_DOCS],
+                                            unsigned mine, int doc0, int k, int lane) {
+    bool own = lane < k;  // the lane's list pair is still a candidate
+    float out_v = -INFINITY;
+    int out_x = NO_INDEX;
+    for (int r = 0; r < k; ++r) {
+        float bv = own ? v : -INFINITY;
+        int bx = own ? x : NO_INDEX, bj = -1;
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) {
+            if (((mine >> jj) & 1u) && ranks_before(s[jj], doc0 + 32 * jj, bv, bx)) {
+                bv = s[jj];
+                bx = doc0 + 32 * jj;
+                bj = jj;
+            }
+        }
+        float top = bv;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) top = fmaxf(top, __shfl_xor_sync(FULL, top, off));
+        const bool at_top = bv == top;
+        const unsigned tops = __ballot_sync(FULL, at_top);
+        int wx = at_top ? bx : NO_INDEX;
+        if (tops & (tops - 1)) {  // several lanes hold the largest score: the lowest index
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) wx = min(wx, __shfl_xor_sync(FULL, wx, off));
+        } else {
+            wx = __shfl_sync(FULL, wx, __ffs(tops) - 1);
+        }
+        const bool won = at_top && bx == wx;  // this lane's candidate
+        const float wv = __shfl_sync(FULL, bv, __ffs(__ballot_sync(FULL, won)) - 1);
+        if (lane == r) {
+            out_v = wv;
+            out_x = wx;
+        }
+        if (won) {
+            if (bj < 0) own = false;
+            else mine &= ~(1u << bj);
+        }
+    }
+    v = out_v;
+    x = out_x;
+}
+
+// One tile's selection for a warp's nq live queries (8 at most): query i's
+// list of k pairs at lv / lx + RING_LIST i, best first and padded with
+// (-inf, NO_INDEX), so that its pair k - 1 is the bar a score must beat
+// (every score beats the pad). acc[i][jj] is query i's score of doc t0 + 32
+// jj + lane. A query goes on only where some lane's largest score (or
+// MASKED) reaches the bar's value: no other score can beat it. Then each
+// lane votes its scores (rows past n_docs at MASKED, docs past `end` never).
+// Up to 2k survivors are inserted in doc order into the list, read into
+// lanes 0 .. k - 1 (ring_insert); more (a split's first tile, where every
+// doc beats the pad) are merged after the other queries by k rounds of the
+// warp's best among the list's pairs and the survivors (ring_rounds), where
+// the inserts would take one dependent round each. __syncwarp alone: no
+// other warp reads these lists before the split ends. Doc indices are ints:
+// N < 2^31.
+__device__ __forceinline__ void ring_select(const float (&acc)[8][RING_LANE_DOCS], float* lv,
+                                            int* lx, int k, int t0, int end, int n_docs, int nq,
+                                            int lane) {
+    unsigned flood = 0;  // bit i: query i has more than 2k survivors, the same in every lane
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        float top = MASKED;
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) top = fmaxf(top, acc[i][jj]);
+        const float kth_v = lv[i * RING_LIST + k - 1];
+        if (!__any_sync(FULL, top >= kth_v) || i >= nq) continue;
+        const int kth_i = lx[i * RING_LIST + k - 1];
+        unsigned mine = 0;  // bit jj: the lane's doc jj survives
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) {
+            const int doc = t0 + 32 * jj + lane;
+            const float s = doc < n_docs ? acc[i][jj] : MASKED;
+            mine |= (unsigned)(doc < end && ranks_before(s, doc, kth_v, kth_i)) << jj;
+        }
+        if (__reduce_add_sync(FULL, __popc(mine)) > 2u * k) {
+            flood |= 1u << i;
+            continue;
+        }
+        float v = lv[i * RING_LIST + lane % RING_LIST];  // lanes from k on: never read
+        int x = lx[i * RING_LIST + lane % RING_LIST];
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) {
+            const float s = t0 + 32 * jj + lane < n_docs ? acc[i][jj] : MASKED;
+            unsigned b = __ballot_sync(FULL, (mine >> jj) & 1u);
+            while (b) {
+                const int src = __ffs(b) - 1;
+                b &= b - 1;
+                ring_insert(v, x, __shfl_sync(FULL, s, src), t0 + 32 * jj + src, k, lane);
+            }
+        }
+        if (lane < k) {
+            lv[i * RING_LIST + lane] = v;
+            lx[i * RING_LIST + lane] = x;
+        }
+        __syncwarp();
+    }
+    while (flood) {
+        const int i = __ffs(flood) - 1;
+        flood &= flood - 1;
+        const float kth_v = lv[i * RING_LIST + k - 1];
+        const int kth_i = lx[i * RING_LIST + k - 1];
+        float v = lv[i * RING_LIST + lane % RING_LIST];
+        int x = lx[i * RING_LIST + lane % RING_LIST];
+        float s[RING_LANE_DOCS];  // acc[i], by selects: i is not known at compile time here
+        unsigned mine = 0;
+#pragma unroll
+        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) {
+            s[jj] = acc[0][jj];
+#pragma unroll
+            for (int ii = 1; ii < 8; ++ii) s[jj] = i == ii ? acc[ii][jj] : s[jj];
+            const int doc = t0 + 32 * jj + lane;
+            if (doc >= n_docs) s[jj] = MASKED;
+            mine |= (unsigned)(doc < end && ranks_before(s[jj], doc, kth_v, kth_i)) << jj;
+        }
+        ring_rounds(v, x, s, mine, t0 + lane, k, lane);
+        if (lane < k) {
+            lv[i * RING_LIST + lane] = v;
+            lx[i * RING_LIST + lane] = x;
+        }
+        __syncwarp();
+    }
+}
+
+// The bytes of a score_topk_tiles_ring block: room to align the ring to
+// RING_ALIGN (the 64-byte swizzle repeats every 512 bytes and is read off
+// the address), the ring, every warp's 8 lists of values and indices, then
+// a full mbarrier (8 bytes) and a count of readers (4) a stage.
+constexpr int RING_ALIGN = 1024;
+template <int QW>
+constexpr size_t ring_smem_q() {
+    return RING_ALIGN + sizeof(float) * ((size_t)RING_STAGES * Ring<QW>::STAGE
+                                         + 2 * RING_WARPS * 8 * RING_LIST)
+         + 12 * RING_STAGES;
+}
+
+// Split s reads docs [s split_len, (s + 1) split_len) cut at n; the block
+// takes queries BQ blockIdx.x on. Warp (qw, dw) = (warp % QW, warp / QW)
+// multiplies queries 8 qw .. 8 qw + 7 against docs WARP_DOCS dw on of each
+// tile and keeps its own lists of them; at the split's end warp (qw, 0)
+// inserts the other doc warps' pairs into its lists and writes them to
+// cand_v / cand_i. Stage g lands in slot g % RING_STAGES and completes the
+// slot's full barrier; a warp waits for that, multiplies, and counts itself
+// among the slot's readers. Where `vec` the warp that reads it last copies
+// stage g + RING_STAGES into it by TMA (doc_map, query_map: boxes of
+// RING_DEPTH columns, 64-byte swizzle), so no warp waits for another but
+// when it runs RING_STAGES stages ahead of the slowest (a single thread
+// that copies for all, waiting for each slot to empty, was slower: 2.53 ms
+// against 2.18 at Q=256). Else (4-byte cp.async copies) every thread copies
+// after a block barrier.
+template <int QW>
+__global__ void __launch_bounds__(RING_THREADS, RING_MIN_BLOCKS)
+score_topk_tiles_ring(const float* __restrict__ docs, const float* __restrict__ queries,
+                      long long n, int n_queries, int dim, int k, long long n_docs,
+                      long long split_len, int vec, float* __restrict__ cand_v,
+                      int* __restrict__ cand_i, const __grid_constant__ CUtensorMap doc_map,
+                      const __grid_constant__ CUtensorMap query_map) {
+    using R = Ring<QW>;
+    constexpr int TMA_ROWS = R::BN < 256 ? R::BN : 256;  // a TMA box's rows: 256 at most
+    static_assert(R::BN % TMA_ROWS == 0 && R::BQ <= 256, "whole boxes a stage");
+    extern __shared__ float4 smem4[];
+    const unsigned raw = shared_address(smem4);
+    float* ring = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4)
+                                           + ((RING_ALIGN - raw % RING_ALIGN) % RING_ALIGN));
+    float* list_v = ring + RING_STAGES * R::STAGE;  // [RING_WARPS][8][RING_LIST]
+    int* list_i = reinterpret_cast<int*>(list_v + RING_WARPS * 8 * RING_LIST);
+    unsigned long long* full = reinterpret_cast<unsigned long long*>(
+        list_i + RING_WARPS * 8 * RING_LIST);                   // [RING_STAGES] mbarriers
+    unsigned* readers = reinterpret_cast<unsigned*>(full + RING_STAGES);  // [RING_STAGES]
+    const unsigned ring_at = shared_address(ring), full_at = shared_address(full);
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int qw = warp % QW, dw = warp / QW;
+    const int q0 = blockIdx.x * R::BQ;
+    const int split = blockIdx.y;
+    const long long begin = (long long)split * split_len;
+    const int len = (int)(min(begin + split_len, n) - begin);  // the split's docs; N < 2^31
+    const int first = (int)begin;                                // the split's first doc
+    const int chunks = (dim + RING_DEPTH - 1) / RING_DEPTH;
+    const int stages = (len + R::BN - 1) / R::BN * chunks;
+    const int nq = min(8, n_queries - q0 - 8 * qw);  // the warp's live queries; none at <= 0
+
+    float* my_v = list_v + warp * 8 * RING_LIST;
+    int* my_i = list_i + warp * 8 * RING_LIST;
+    for (int e = lane; e < 8 * RING_LIST; e += 32) {
+        my_v[e] = -INFINITY;
+        my_i[e] = NO_INDEX;
+    }
+    if (tid == 0) {
+        for (int s = 0; s < RING_STAGES; ++s) {
+            mbar_init(full_at + 8 * s, vec ? 1 : RING_THREADS);
+            readers[s] = 0;
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // Without TMA a thread copies unit tid % UNITS of doc rows tid / UNITS +
+    // APART i of every stage, and of query row tid / UNITS where the block
+    // has one, 4 bytes at a time: its sources and places are set here once.
+    constexpr int UNITS = RING_DEPTH / 4, APART = RING_THREADS / UNITS;
+    static_assert(R::BN % APART == 0 && APART % 8 == 0,
+                  "whole doc copies a thread, APART rows apart in the swizzle's period");
+    const int my_row = tid / UNITS, my_unit = tid % UNITS;
+    const unsigned doc_at = ring_at + 4 * ring_unit(my_row, my_unit);  // copy i: + APART rows
+    const unsigned query_at = ring_at + 4 * ring_unit(R::BN + my_row, my_unit);
+    const float* doc_src = docs + (begin + my_row) * dim + 4 * my_unit;
+    const float* query_src = queries + ((long long)q0 + my_row) * dim + 4 * my_unit;
+    const bool copies_query = my_row < R::BQ, query_live = q0 + my_row < n_queries;
+    // stage p: columns RING_DEPTH (p % chunks) on of the tile at row BN (p /
+    // chunks), into slot p % RING_STAGES: by TMA from one thread, or by
+    // cp.async from every thread
+    auto copy_stage = [&](int p) {
+        const int slot = p % RING_STAGES, tile_row = p / chunks * R::BN;
+        const int d0 = (p - tile_row / R::BN * chunks) * RING_DEPTH;
+        const unsigned at = ring_at + slot * R::STAGE * 4, bar = full_at + 8 * slot;
+        if (vec) {
+            mbar_expect(bar, R::STAGE * 4);
+#pragma unroll
+            for (int b = 0; b < R::BN / TMA_ROWS; ++b)
+                tma_box(at + b * TMA_ROWS * RING_DEPTH * 4, &doc_map, d0,
+                        first + tile_row + b * TMA_ROWS, bar);
+            tma_box(at + R::BN * RING_DEPTH * 4, &query_map, d0, q0, bar);
+            return;
+        }
+        const int cols = dim - d0 - 4 * my_unit;
+        const int rows = len - tile_row - my_row;  // rows this thread's copies may read
+        const float* src = doc_src + (long long)tile_row * dim + d0;
+        const unsigned place = at - ring_at;
+#pragma unroll
+        for (int i = 0; i < R::BN / APART; ++i)
+            ring_copy4(doc_at + place + i * APART * RING_DEPTH * 4,
+                       src + (long long)i * APART * dim, docs, APART * i < rows, cols);
+        if (copies_query) ring_copy4(query_at + place, query_src + d0, queries, query_live, cols);
+        cp_async_arrive(bar);
+    };
+    if (!vec || tid == 0)
+        for (int p = 0; p < min(stages, RING_STAGES); ++p) copy_stage(p);
+
+    const float* d_rows = ring + R::WARP_DOCS * dw * RING_DEPTH;
+    const float* q_rows = ring + (R::BN + 8 * qw) * RING_DEPTH;
+    const int live_docs = (int)max(0LL, min(n_docs - begin, (long long)len));  // unmasked
+    int got = 0;  // stages multiplied
+    for (int t = 0; t < len; t += R::BN) {
+        float acc[8][RING_LANE_DOCS];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < RING_LANE_DOCS; ++j) acc[i][j] = 0.f;
+        for (int ch = 0; ch < chunks; ++ch) {
+            const int slot = got % RING_STAGES;
+            mbar_wait(full_at + 8 * slot, (got / RING_STAGES) & 1);  // the stage has landed
+            if (nq > 0)
+                ring_product(acc, d_rows + slot * R::STAGE, q_rows + slot * R::STAGE, lane);
+            // the slot's last reader copies stage got + RING_STAGES into it
+            if (vec) {
+                __syncwarp();
+                if (lane == 0) {
+                    __threadfence_block();
+                    if (atomicAdd(&readers[slot], 1u) % RING_WARPS == RING_WARPS - 1
+                        && got + RING_STAGES < stages) {
+                        __threadfence_block();
+                        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                        copy_stage(got + RING_STAGES);
+                    }
+                }
+                __syncwarp();
+            } else if (got + RING_STAGES < stages) {
+                __syncthreads();  // every warp has read the slot
+                copy_stage(got + RING_STAGES);
+            }
+            ++got;
+        }
+        if (nq > 0)
+            ring_select(acc, my_v, my_i, k, first + t + R::WARP_DOCS * dw, first + len,
+                        first + live_docs, nq, lane);
+    }
+    cp_async_wait<0>();  // no copy outlives the block
+
+    if constexpr (R::DW > 1) {
+        __syncthreads();  // the doc warps' lists are final
+        if (dw > 0) return;
+    }
+    for (int i = 0; i < nq; ++i) {
+        float v = my_v[i * RING_LIST + lane % RING_LIST];
+        int x = my_i[i * RING_LIST + lane % RING_LIST];
+#pragma unroll
+        for (int w = 1; w < R::DW; ++w) {  // the same queries' pairs from the other doc warps
+            const int other = ((qw + QW * w) * 8 + i) * RING_LIST;
+            for (int e = 0; e < k; ++e) ring_insert(v, x, list_v[other + e], list_i[other + e], k,
+                                                    lane);
+        }
+        if (lane < k) {
+            const long long o = ((long long)(q0 + 8 * qw + i) * gridDim.y + split) * k + lane;
+            cand_v[o] = v;
+            cand_i[o] = x;
+        }
+    }
+}
+
 // Words of a shared plane of n pairs' values or indices, padding included,
 // rounded up to whole 16-byte units.
 __host__ __device__ constexpr int plane(int n) { return (n + (n + 31) / 32 + 3) / 4 * 4; }
@@ -2229,6 +2771,81 @@ cudaError_t tiles_occupancy(int k, int* blocks_per_sm, int* registers, int* loca
                                                          tiles_smem(k));
 }
 
+// The instantiation of score_topk_tiles_ring that n_queries takes (4 warps
+// of queries up to RING_SMALL_Q, else 8), its shared memory set, and its
+// block's queries and tile's docs.
+using RingKernel = void (*)(const float*, const float*, long long, int, int, int, long long,
+                            long long, int, float*, int*, const CUtensorMap, const CUtensorMap);
+
+template <int QW>
+cudaError_t ring_kernel_q(RingKernel* kernel, size_t* smem, int* block_queries, int* tile_docs) {
+    *kernel = score_topk_tiles_ring<QW>;
+    *smem = ring_smem_q<QW>();
+    *block_queries = Ring<QW>::BQ;
+    *tile_docs = Ring<QW>::BN;
+    return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+cudaError_t ring_kernel(int n_queries, RingKernel* kernel, size_t* smem, int* block_queries,
+                        int* tile_docs) {
+    return n_queries <= RING_SMALL_Q ? ring_kernel_q<4>(kernel, smem, block_queries, tile_docs)
+                                     : ring_kernel_q<8>(kernel, smem, block_queries, tile_docs);
+}
+
+// The TMA map of a (rows, dim) f32 matrix for the ring: boxes of RING_DEPTH
+// columns x box_rows rows, 64-byte swizzle (ring_unit's), zeros outside the
+// matrix. cuTensorMapEncodeTiled comes from the driver through the runtime,
+// so the library links nothing more.
+cudaError_t ring_map(CUtensorMap* map, const float* base, long long rows, int dim, int box_rows) {
+    static PFN_cuTensorMapEncodeTiled encode = nullptr;
+    if (encode == nullptr) {
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &found);
+        if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || encode == nullptr) {
+            encode = nullptr;
+            return err != cudaSuccess ? err : cudaErrorNotSupported;
+        }
+    }
+    const cuuint64_t size[2] = {(cuuint64_t)dim, (cuuint64_t)rows};
+    const cuuint64_t stride[1] = {(cuuint64_t)dim * sizeof(float)};
+    const cuuint32_t box[2] = {RING_DEPTH, (cuuint32_t)box_rows};
+    const cuuint32_t step[2] = {1, 1};
+    const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+                                size, stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_ring(const void* docs, const void* queries, long long n, int n_queries, int dim,
+                        int k, long long n_docs, int n_splits, long long split_len, float* cand_v,
+                        int* cand_i, cudaStream_t stream) {
+    if (k < 1 || k > WIDE_K || n_queries < 1) return cudaErrorInvalidValue;
+    RingKernel kernel;
+    size_t smem;
+    int block_queries, tile_docs;
+    cudaError_t err = ring_kernel(n_queries, &kernel, &smem, &block_queries, &tile_docs);
+    if (err != cudaSuccess) return err;
+    // TMA takes rows that start 16-byte aligned; else every thread copies 4 bytes at a time
+    const int vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0
+                    && reinterpret_cast<uintptr_t>(queries) % 16 == 0;
+    CUtensorMap doc_map = {}, query_map = {};
+    if (vec) {
+        err = ring_map(&doc_map, static_cast<const float*>(docs), n, dim,
+                       tile_docs < 256 ? tile_docs : 256);
+        if (err == cudaSuccess)
+            err = ring_map(&query_map, static_cast<const float*>(queries), n_queries, dim,
+                           block_queries);
+        if (err != cudaSuccess) return err;
+    }
+    const dim3 grid((n_queries + block_queries - 1) / block_queries, n_splits);
+    kernel<<<grid, RING_THREADS, smem, stream>>>(
+        static_cast<const float*>(docs), static_cast<const float*>(queries), n, n_queries, dim, k,
+        n_docs, split_len, vec, cand_v, cand_i, doc_map, query_map);
+    return cudaGetLastError();
+}
+
 template <typename K>
 cudaError_t merge_occupancy(K kernel, int lists, int k, int* smem_bytes, int* blocks_per_sm,
                             int* registers, int* local_bytes) {
@@ -2256,7 +2873,8 @@ extern "C" {
 // one block a split), PASS_STREAM_MMA (score_topk_stream_mma: bf16 docs,
 // 2 <= n_queries <= 4, D a multiple of 8, docs 16-byte aligned; one block a
 // split) or PASS_TILES (score_topk_tiles, 32 queries a block; bf16 docs on
-// the tensor cores).
+// the tensor cores; f32 docs only at k > WIDE_K) or PASS_TILES_RING
+// (score_topk_tiles_ring: f32 docs, k <= WIDE_K, 32 or 64 queries a block).
 // merge_group is pass 2's group of lists (merge_plan); 0 runs pass 1 alone
 // and leaves its lists in cand_v/cand_i, out_v/out_i untouched.
 // The wide selection alone (score_topk_tiles: pass1 PASS_TILES, k >
@@ -2274,8 +2892,10 @@ int score_topk_bar_launch(const void* docs, const void* queries, int docs_bf16,
                           long long bar_stride, long long split_docs, void* stream) {
     const bool wide = pass1 == PASS_TILES && k > WIDE_K;
     if (n_splits < 1 || n_splits > MAX_SPLITS || merge_group < 0
-        || (pass1 != PASS_STREAM && pass1 != PASS_STREAM_MMA && pass1 != PASS_TILES)
-        || (pass1 == PASS_STREAM_MMA && !docs_bf16)
+        || (pass1 != PASS_STREAM && pass1 != PASS_STREAM_MMA && pass1 != PASS_TILES
+            && pass1 != PASS_TILES_RING)
+        || (pass1 == PASS_STREAM_MMA && !docs_bf16) || (pass1 == PASS_TILES_RING && docs_bf16)
+        || (pass1 == PASS_TILES && !docs_bf16 && k <= WIDE_K)
         || (bar_v != nullptr && (bar_i == nullptr || !wide)) || split_docs < 1
         || split_docs > split_len || (split_docs != split_len && !wide))
         return (int)cudaErrorInvalidValue;
@@ -2284,6 +2904,9 @@ int score_topk_bar_launch(const void* docs, const void* queries, int docs_bf16,
     if (pass1 == PASS_STREAM_MMA)
         err = launch_stream_mma(docs, queries, n, n_queries, dim, k, n_docs, n_splits,
                                 split_len, cand_v, cand_i, s);
+    else if (pass1 == PASS_TILES_RING)
+        err = launch_ring(docs, queries, n, n_queries, dim, k, n_docs, n_splits, split_len, cand_v,
+                          cand_i, s);
     else if (docs_bf16)
         err = pass1 == PASS_STREAM
             ? launch_stream<__nv_bfloat16>(docs, queries, n, n_queries, dim, k, n_docs,
@@ -2349,6 +2972,27 @@ int score_topk_stream_mma_occupancy(int n_queries, int dim, int k, int* smem_byt
         case 4: return (int)stream_mma_occupancy_q<4>(dim, k, blocks_per_sm, registers, local_bytes);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// The same for a score_topk_tiles_ring block of n_queries (f32 docs, k <=
+// WIDE_K), with the queries of its block and the docs of its tile, which
+// the plan follows.
+int score_topk_tiles_ring_occupancy(int n_queries, int k, int* smem_bytes, int* blocks_per_sm,
+                                    int* registers, int* local_bytes, int* block_queries,
+                                    int* tile_docs) {
+    if (k < 1 || k > WIDE_K || n_queries < 1) return (int)cudaErrorInvalidValue;
+    RingKernel kernel;
+    size_t smem;
+    cudaError_t err = ring_kernel(n_queries, &kernel, &smem, block_queries, tile_docs);
+    if (err != cudaSuccess) return (int)err;
+    *smem_bytes = (int)smem;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    *registers = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, RING_THREADS,
+                                                              smem);
 }
 
 // The same for a pass-2 block over `lists` lists of k: level 1

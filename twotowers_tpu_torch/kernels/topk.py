@@ -11,10 +11,12 @@ wrapper raises ``ValueError`` and hands nothing to the plain version. It
 launches on the current stream, allocates outputs and scratch with
 ``torch.empty``, and raises if the launch returns a CUDA error.
 
-Pass 1 is one of three kernels (``call_plan``): ``score_topk_stream`` at
+Pass 1 is one of four kernels (``call_plan``): ``score_topk_stream`` at
 Q <= 4, ``score_topk_stream_mma`` (the tensor cores) in its place for bf16
 docs at Q = 2-4 whose rows allow 16-byte copies (``stream_mma_takes``, the
-route rule), and ``score_topk_tiles`` at Q >= 5.
+route rule), ``score_topk_tiles`` at Q >= 5, and ``score_topk_tiles_ring``
+in its place for f32 docs at k <= ``WIDE_K`` (``ring_takes``: every batch
+search).
 Pass 1 leaves each query's ``(n_splits, k)`` sorted lists in scratch;
 pass 2 merges them by a fixed tree (``merge_plan``). ``merge_topk_cuda``
 runs pass 2 alone and ``merge_topk_reference`` is its plain version, for
@@ -64,8 +66,17 @@ MMA_DEPTH = 32      # score_topk.cu:MMA_DEPTH: depth of a bf16 Q >= 5 stage (256
 STREAM_MMA_STAGES = 4   # score_topk.cu:STREAM_MMA_STAGES: stages of a warp's cp.async ring
 STREAM_MMA_DEPTH = 64   # score_topk.cu:STREAM_MMA_DEPTH: columns of a stage (32 docs, 4 KB)
 STREAM_MMA_STAGE_BYTES = 32 * STREAM_MMA_DEPTH * 2
+RING_WARPS = 8      # score_topk.cu:RING_WARPS, warps of a score_topk_tiles_ring block
+RING_STAGES = 4     # score_topk.cu:RING_STAGES: stages of its ring
+RING_DEPTH = 16     # score_topk.cu:RING_DEPTH: columns of a stage
+RING_LANE_DOCS = 4  # score_topk.cu:RING_LANE_DOCS: docs a lane multiplies by 8 queries
+RING_ALIGN = 1024   # score_topk.cu:RING_ALIGN: the ring's alignment in shared memory
+RING_SMALL_Q = 32   # score_topk.cu:RING_SMALL_Q: Q up to this takes 4 warps of queries x 2
+                    # of docs (32 queries), above it 8 x 1 (64 queries)
+RING_LIST = 16      # score_topk.cu:RING_LIST: places of a query's list in a warp
 # score_topk.cu's pass1 codes: the kernel that runs pass 1
 PASS_STREAM, PASS_STREAM_MMA, PASS_TILES = 1, 2, 8
+PASS_TILES_RING = 4
 
 MERGE_SMEM_BUDGET = 110 * 1024  # shared bytes of a pass-2 block, at most: 2 blocks an SM
 NO_INDEX = 2**31 - 1  # the index of a padding pair, beside the value -inf
@@ -76,30 +87,33 @@ NO_INDEX = 2**31 - 1  # the index of a padding pair, beside the value -inf
 LAUNCHES = 0
 # ... of them, those whose pass 1 ran score_topk_stream_mma
 STREAM_MMA_LAUNCHES = 0
+# ... and those whose pass 1 ran score_topk_tiles_ring
+RING_LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def plan(n_queries: int, n: int, sm_count: int,
-         blocks_per_sm: int) -> Tuple[int, int, int]:
+def plan(n_queries: int, n: int, sm_count: int, blocks_per_sm: int,
+         block_queries: int = 32, tile_docs: int = BATCH_TILE_N) -> Tuple[int, int, int]:
     """(rows_per_thread, n_splits, split_len) for a call.
 
     Q <= 4 takes ``score_topk_stream`` or ``score_topk_stream_mma`` (all
     the queries in one block, splits a whole number of ``STREAM_ROWS``
-    docs); Q >= 5 takes ``score_topk_tiles`` (32 queries a block, tiles of
-    ``BATCH_TILE_N``). Each aims at ``blocks_per_sm``, the blocks of its
-    pass that fit on an SM at once (``stream_occupancy``,
-    ``stream_mma_occupancy`` or ``tiles_occupancy``): about one wave of
-    splits, each as long as it can be. The doc axis is cut into that many
-    splits, each a whole number of tiles.
+    docs); Q >= 5 takes a block of ``block_queries`` queries that reads
+    tiles of ``tile_docs`` docs: ``score_topk_tiles`` (32 and
+    ``BATCH_TILE_N``, the defaults) or ``score_topk_tiles_ring`` (the shape
+    ``ring_occupancy`` reports). Each aims at ``blocks_per_sm``, the blocks
+    of its pass that fit on an SM at once (``stream_occupancy``,
+    ``stream_mma_occupancy``, ``tiles_occupancy`` or ``ring_occupancy``):
+    about one wave of splits, each as long as it can be, the split count
+    rounded up. The doc axis is cut into that many splits, each a whole
+    number of tiles.
     """
     if n_queries <= 4:
-        rows, tile = 1, STREAM_ROWS
+        rows, tile, q_blocks = 1, STREAM_ROWS, 1
     else:
-        rows, tile = 8, BATCH_TILE_N
-    per_sm = max(1, blocks_per_sm)
-    q_blocks = -(-n_queries // (4 * rows))
-    want = -(-sm_count * per_sm // q_blocks)
+        rows, tile, q_blocks = 8, tile_docs, -(-n_queries // block_queries)
+    want = -(-sm_count * max(1, blocks_per_sm) // q_blocks)
     tiles = -(-n // tile)
     n_splits = max(1, min(want, tiles, MAX_SPLITS))
     split_len = -(-tiles // n_splits) * tile
@@ -209,6 +223,35 @@ def stream_mma_takes(dtype: torch.dtype, n_queries: int, dim: int, docs_ptr: int
         and docs_ptr % 16 == 0
 
 
+def ring_takes(dtype: torch.dtype, n_queries: int, k: int) -> bool:
+    """The Q >= 5 pass's route rule: ``score_topk_tiles_ring`` takes f32
+    docs at Q >= 5 and k <= ``WIDE_K`` (every batch search; any D and
+    alignment: off 16 bytes its copies are 4 bytes each); bf16 docs and k >
+    ``WIDE_K`` stay on ``score_topk_tiles``, Q <= 4 on the stream passes."""
+    return dtype == torch.float32 and n_queries > 4 and k <= WIDE_K
+
+
+def ring_block(n_queries: int) -> Tuple[int, int]:
+    """(block_queries, tile_docs) of the ``score_topk_tiles_ring`` block
+    that n_queries takes (``score_topk.cu:Ring``): 4 warps of 8 queries x 2
+    warps of 32 ``RING_LANE_DOCS`` docs up to ``RING_SMALL_Q`` queries, else
+    8 x 1."""
+    query_warps = 4 if n_queries <= RING_SMALL_Q else RING_WARPS
+    return 8 * query_warps, 32 * RING_LANE_DOCS * (RING_WARPS // query_warps)
+
+
+def ring_smem(n_queries: int) -> int:
+    """Shared bytes of a ``score_topk_tiles_ring`` block
+    (``score_topk.cu:ring_smem_q``): room to align the ring to
+    ``RING_ALIGN``, ``RING_STAGES`` stages of the tile's doc rows and the
+    block's query rows, ``RING_DEPTH`` floats each, every warp's 8 lists of
+    ``RING_LIST`` values and indices, then a full mbarrier (8 bytes) and a
+    count of readers (4) a stage."""
+    block_queries, tile_docs = ring_block(n_queries)
+    return RING_ALIGN + 4 * (RING_STAGES * (tile_docs + block_queries) * RING_DEPTH
+                             + 2 * RING_WARPS * 8 * RING_LIST) + 12 * RING_STAGES
+
+
 def stream_mma_smem(n_queries: int, dim: int, k: int) -> int:
     """Shared bytes of a ``score_topk_stream_mma`` block
     (``score_topk.cu:stream_mma_smem``): 8 warps' rings of
@@ -302,6 +345,9 @@ def _lib() -> ctypes.CDLL:
         occ = lib.score_topk_stream_mma_occupancy
         occ.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 4
         occ.restype = i32
+        occ = lib.score_topk_tiles_ring_occupancy
+        occ.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 6
+        occ.restype = i32
         merge = lib.score_topk_merge_launch
         merge.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
         merge.restype = i32
@@ -315,6 +361,7 @@ _OCCUPANCY_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes")
 _occupancy: Dict[Tuple[int, bool, int], Dict[str, int]] = {}
 _stream_occupancy: Dict[Tuple[int, bool, int, int, int], Dict[str, int]] = {}
 _stream_mma_occupancy: Dict[Tuple[int, int, int, int], Dict[str, int]] = {}
+_ring_occupancy: Dict[Tuple[int, bool], Dict[str, int]] = {}
 
 
 def tiles_occupancy(device: torch.device, dtype: torch.dtype, k: int) -> Dict[str, int]:
@@ -371,15 +418,39 @@ def stream_mma_occupancy(device: torch.device, n_queries: int, dim: int,
     return _stream_mma_occupancy[key]
 
 
+def ring_occupancy(device: torch.device, n_queries: int, k: int) -> Dict[str, int]:
+    """A ``score_topk_tiles_ring`` block for ``n_queries`` (f32 docs, k <=
+    ``WIDE_K``) on the card, as the CUDA runtime reports it: the keys of
+    ``stream_occupancy``, then ``block_queries`` and ``tile_docs``, the
+    block's shape as compiled, which ``plan()`` follows."""
+    if not 1 <= k <= WIDE_K:
+        raise ValueError(f"ring_occupancy: the ring pass takes 1 <= k <= {WIDE_K}, got {k}")
+    key = (torch.device(device).index or 0, n_queries <= RING_SMALL_Q)
+    if key not in _ring_occupancy:
+        out = [ctypes.c_int() for _ in range(6)]
+        with torch.cuda.device(device):
+            err = _lib().score_topk_tiles_ring_occupancy(n_queries, k, *map(ctypes.byref, out))
+        if err != 0:
+            raise RuntimeError(f"score_topk occupancy query failed with cudaError_t {err}")
+        keys = _OCCUPANCY_KEYS + ("block_queries", "tile_docs")
+        _ring_occupancy[key] = dict(zip(keys, (o.value for o in out)))
+    return _ring_occupancy[key]
+
+
 def call_plan(doc_matrix: torch.Tensor, n_queries: int, k: int) -> Tuple[int, int, int]:
     """(pass1, n_splits, split_len) of a call on the card: the kernel that
     runs pass 1 (``PASS_STREAM``, ``PASS_STREAM_MMA`` where
-    ``stream_mma_takes``, or ``PASS_TILES``) and ``plan()`` under its
-    blocks per SM."""
+    ``stream_mma_takes``, ``PASS_TILES_RING`` where ``ring_takes``, or
+    ``PASS_TILES``) and ``plan()`` under its blocks per SM."""
     device = doc_matrix.device
     n, dim = doc_matrix.shape
     dtype = doc_matrix.dtype
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    if ring_takes(dtype, n_queries, k):
+        block = ring_occupancy(device, n_queries, k)
+        _, n_splits, split_len = plan(n_queries, n, sm_count, block["blocks_per_sm"],
+                                      block["block_queries"], block["tile_docs"])
+        return PASS_TILES_RING, n_splits, split_len
     mma = stream_mma_takes(dtype, n_queries, dim, doc_matrix.data_ptr())
     if n_queries > 4:
         block = tiles_occupancy(device, dtype, k)
@@ -387,7 +458,8 @@ def call_plan(doc_matrix: torch.Tensor, n_queries: int, k: int) -> Tuple[int, in
         block = stream_mma_occupancy(device, n_queries, dim, k)
     else:
         block = stream_occupancy(device, dtype, n_queries, dim, k)
-    rows, n_splits, split_len = plan(n_queries, n, sm_count, block["blocks_per_sm"])
+    rows, n_splits, split_len = plan(n_queries, n, sm_count, block["blocks_per_sm"], 32,
+                                     BATCH_TILE_N)
     pass1 = PASS_TILES if rows == 8 else PASS_STREAM_MMA if mma else PASS_STREAM
     return pass1, n_splits, split_len
 
@@ -427,7 +499,8 @@ def _call(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optio
     ``launch(n_splits, split_len, split_docs, bar)`` launches pass 1 under
     that plan, then pass 2 if ``merge``, returns (cand_v, cand_i, out_v,
     out_i) and adds one to ``LAUNCHES`` (and to ``STREAM_MMA_LAUNCHES``
-    where ``score_topk_stream_mma`` ran pass 1)."""
+    or ``RING_LAUNCHES`` where ``score_topk_stream_mma`` or
+    ``score_topk_tiles_ring`` ran pass 1)."""
     check_args(doc_matrix, queries, k)
     device = doc_matrix.device
     if device.type != "cuda" or queries.device != device:
@@ -440,7 +513,7 @@ def _call(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optio
     pass1, n_splits, split_len = call_plan(doc_matrix, n_queries, k)
 
     def launch(n_splits: int, split_len: int, split_docs: int, bar: Optional[Bar]):
-        global LAUNCHES, STREAM_MMA_LAUNCHES
+        global LAUNCHES, STREAM_MMA_LAUNCHES, RING_LAUNCHES
         bar_args = (None, None, 0)
         if bar is not None:
             _check_bar(bar, n_queries, k, device)
@@ -461,6 +534,7 @@ def _call(doc_matrix: torch.Tensor, queries: torch.Tensor, k: int, n_docs: Optio
             raise RuntimeError(f"score_topk kernel launch failed with cudaError_t {err}")
         LAUNCHES += 1
         STREAM_MMA_LAUNCHES += int(pass1 == PASS_STREAM_MMA)
+        RING_LAUNCHES += int(pass1 == PASS_TILES_RING)
         return cand_v, cand_i, out_v, out_i
 
     return launch, n_splits, split_len

@@ -2,7 +2,7 @@
 
     python -m twotowers_tpu_torch.kernels.topk_variants [--against DIR] [--only NAME ...]
                                                         [--k-sweep] [--wide] [--bar-sweep]
-                                                        [--ordered]
+                                                        [--ordered] [--ring]
 
 Each variant is ``csrc/score_topk.cu`` with one constant or launch bound
 rewritten, compiled by ``nvcc`` (all at once) into ``build/topk_variants/``,
@@ -42,7 +42,23 @@ clock and power that ``nvidia-smi`` samples while the shipped kernel
 runs Q=256 f32 and Q=1 f32 for a few seconds each; then
 ``torch.topk`` of the matmul at every shape ("library_ms"); last the
 card's name and power limit. The variant "selection cut" times the Q >= 5 pass's
-product alone, bf16 on the tensor cores and f32 on the CUDA cores.
+product alone, bf16 on the tensor cores and f32 on the CUDA cores (f32 at k <=
+14 in ``score_topk_tiles_ring``; "selection cut (against)" is made of
+``--against``'s source).
+
+f32 docs at Q >= 5 and k <= 14 run ``score_topk_tiles_ring`` (pass1
+code ``topk.PASS_TILES_RING``, planned by the block shape its occupancy entry
+reports); a source without ``score_topk_tiles_ring_occupancy`` (the parent
+under ``--against``) runs them on ``score_topk_tiles`` (``PASS_TILES``).
+"ring of 3 / 6 stages" sweep its ring's depth, "ring of 8 / 4 query warps at
+every Q" its block's shape (8 x 1 or 4 x 2 warps of queries x docs), "ring by
+cp.async" its copies (every thread's 16-byte ``cp.async`` and a block barrier
+a stage, in place of TMA refilled by each slot's last reader), and "split
+count rounded down" its plan; "ring without copies" moves no data after the
+first ring of stages, "ring product loop alone" keeps only the product loop
+(no copy or wait after the first ring, no selection), and "ring clocked"
+counts the SM cycles of its warps by phase (the wait for a stage, the copies'
+issue and the count of readers, the product, the selection).
 
 The Q >= 5 wide selection (k > 14) by stage: "wide votes only", "wide
 votes and queueing" and "wide votes, queueing and sort" stop it after a
@@ -59,7 +75,11 @@ by variants too. ``--wide`` times ``WIDE_SHAPES`` (Q=32 and 256 in f32
 and bf16 at k=100 and 256), ``--bar-sweep`` ``BAR_SWEEP`` (the same at N
 from 16,384 to 524,288: where the sample run weighs more, or there is
 none), ``--ordered`` ``ORDERED`` (k=256, N=1M, on a corpus stored topic
-by topic and on one sorted by score: ``make_corpus``); the flags add up.
+by topic and on one sorted by score: ``make_corpus``); the flags add up,
+and ``--ring`` times ``RING_SHAPES`` (f32 at Q=5, 32, 33, 64, 256 and
+257, k=10, Q=32 and 256 at k=1 and 14, and Q=32 and 256 at k=10 over N =
+250,000 and 65,536: ``score_topk_tiles_ring``'s two block shapes, and its
+splits at the parallel phase's shard and shorter).
 """
 
 from __future__ import annotations
@@ -101,8 +121,14 @@ BAR_SWEEP = [(q, dtype, k, n) for q in (32, 256) for dtype in (torch.float32, to
              for k in (100, 256) for n in (16_384, 65_536, 131_072, 262_144, 524_288)]
 ORDERED = [(q, dtype, 256, N, corpus) for q in (32, 256)
            for dtype in (torch.float32, torch.bfloat16) for corpus in ("topics", "sorted")]
+# the f32 Q >= 5 narrow pass (--ring): both block shapes of score_topk_tiles_ring,
+# each at a full and a ragged query block, k from 1 to WIDE_K
+RING_SHAPES = [(q, torch.float32, k) for q in (32, 256, 33, 257, 5, 64) for k in (10,)]
+RING_SHAPES += [(q, torch.float32, k) for q in (32, 256) for k in (1, topk.WIDE_K)]
+RING_SHAPES += [(q, torch.float32, 10, n) for q in (32, 256) for n in (250_000, 65_536)]
 TOPICS = 64  # topics of the "topics" corpus
-QUERY_COUNTS = (1, 4, 32, 256, 2, 3)  # the query batches of make_corpus, drawn in this order
+# the query batches of make_corpus, drawn in this order
+QUERY_COUNTS = (1, 4, 32, 256, 2, 3, 33, 257, 5, 64)
 
 
 def make_corpus(kind: str, gen: torch.Generator, dev: torch.device):
@@ -131,19 +157,19 @@ def make_corpus(kind: str, gen: torch.Generator, dev: torch.device):
     return docs, queries
 
 
-def one_full_wave(q, n, sm, per_sm):
+def one_full_wave(q, n, sm, per_sm, block_queries=32, tile_docs=topk.BATCH_TILE_N):
     """The plan with the split count rounded down, so that every block fits
     in one wave (the shipped plan rounds up: a few blocks more)."""
     if q <= 4:
         return topk.plan(q, n, sm, per_sm)
-    tiles, q_blocks = -(-n // topk.BATCH_TILE_N), -(-q // 32)
+    tiles, q_blocks = -(-n // tile_docs), -(-q // block_queries)
     n_splits = max(1, min(sm * per_sm // q_blocks, tiles, topk.MAX_SPLITS))
-    split_len = -(-tiles // n_splits) * topk.BATCH_TILE_N
+    split_len = -(-tiles // n_splits) * tile_docs
     return 8, -(-n // split_len), split_len
 
 
-def two_waves(q, n, sm, per_sm):
-    return topk.plan(q, n, sm, 2 * per_sm)
+def two_waves(q, n, sm, per_sm, *block):
+    return topk.plan(q, n, sm, 2 * per_sm, *block)
 
 
 # the Q <= 4 pass's narrow selection (one insert a survivor) at every k
@@ -249,6 +275,44 @@ WIDE_CLOCKED = [
       "        warp_merge(lists_v + i * ls, lists_i + i * ls, k, qv, qx, n, lane);\n"
       "        WIDE_CLOCK(3, c2_);\n    }\n    WIDE_CLOCK(1, c_);\n}\n")],
 ]
+# the f32 ring pass by phase on the SM clock (score_topk_wide_clocks' counters):
+# a warp's wait for its stage and the barrier (0), its copies' issue (1), its
+# product (2) and its selection a tile (3)
+RING_WAIT = ("            mbar_wait(full_at + 8 * slot, (got / RING_STAGES) & 1);  // the stage has "
+             "landed\n")
+RING_PRODUCT = ("            if (nq > 0)\n                ring_product(acc, d_rows + slot * R::STAGE, "
+                "q_rows + slot * R::STAGE, lane);\n")
+RING_CLOCKED = [
+    CLOCK_DECL, CLOCK_READ,
+    (RING_WAIT, "            unsigned c_ = clock();\n" + RING_WAIT
+     + "            WIDE_CLOCK(0, c_);\n            c_ = clock();\n"),
+    (RING_PRODUCT, RING_PRODUCT + "            WIDE_CLOCK(2, c_);\n            c_ = clock();\n"),
+    ("                copy_stage(got + RING_STAGES);\n            }\n            ++got;\n",
+     "                copy_stage(got + RING_STAGES);\n            }\n            WIDE_CLOCK(1, c_);\n"
+     "            ++got;\n"),
+    ("                        first + live_docs, nq, lane);\n",
+     "                        first + live_docs, nq, lane);\n        WIDE_CLOCK(3, c3_);\n"),
+    ("        if (nq > 0)\n            ring_select(",
+     "        unsigned c3_ = clock();\n        if (nq > 0)\n            ring_select("),
+]
+RING_NO_COPIES = ("        if (vec) {\n            mbar_expect(bar, R::STAGE * 4);",
+                  "        if (vec && p >= RING_STAGES) {\n"
+                  "            mbar_expect(bar, 0);\n            return;\n        }\n"
+                  "        if (vec) {\n            mbar_expect(bar, R::STAGE * 4);")
+# the ring copied by every thread with cp.async, 16 bytes a copy where the
+# unit and its source are 16-byte aligned (4 where not), a block barrier a
+# stage, as where TMA cannot take the rows: no TMA
+RING_BY_CP_ASYNC = [
+    ("    const int vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0",
+     "    const int vec = 0 && dim % 4 == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0"),
+    ("                                           bool live, int cols) {\n#pragma unroll\n",
+     "                                           bool live, int cols) {\n"
+     "    const bool on = live && cols > 0;\n"
+     "    if ((!on || cols >= 4) && reinterpret_cast<uintptr_t>(on ? src : base) % 16 == 0) {\n"
+     "        asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16, %2;\\n\"\n"
+     "                     :: \"r\"(dst), \"l\"(on ? src : base), \"r\"(on ? 16 : 0) : \"memory\");\n"
+     "        return;\n    }\n#pragma unroll\n")]
+
 # ... and the survivors (pairs that pass a vote) and merges of its lists,
 # counted by atomics, read by score_topk_wide_counts
 WIDE_COUNT_DECL = ("constexpr unsigned FULL = 0xffffffffu;\n",
@@ -277,6 +341,22 @@ WIDE_COUNTED = [
      (PARENT_COUNT_N, PARENT_COUNT_N + COUNT_SURVIVORS
       + "        if (lane == 0) atomicAdd(&wide_merges, 1ull);\n")],
 ]
+
+SELECTION_CUT_TILES = [
+    ("#pragma unroll\n        for (int h = 0; h < 2; ++h) {",
+     "bool cut = false;\n#pragma unroll\n        for (int i = 0; i < 8; ++i)\n"
+     "#pragma unroll\n            for (int j = 0; j < 8; ++j) cut |= acc[i][j] > 1.0e30f;\n"
+     "#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n"
+     "            if (!__syncthreads_or(cut)) break;"),
+    ("if (doc < end && ranks_before(s, (int)doc, kth_v, kth_i)) mine |= 1u << jj;",
+     "if (s > 1.0e30f && doc < end && ranks_before(s, (int)doc, kth_v, kth_i))\n"
+     "                mine |= 1u << jj;"),
+]
+RING_SELECTION_CUT = (
+    "        if (!__any_sync(FULL, top >= kth_v) || i >= nq) continue;",
+    "        if (!__any_sync(FULL, top > 1.0e30f && top >= kth_v) || i >= nq) continue;")
+RING_SMALL_Q = f"constexpr int RING_SMALL_Q = {topk.RING_SMALL_Q};"
+RING_STAGES = f"constexpr int RING_STAGES = {topk.RING_STAGES};"
 
 # name -> (rewrites, plan): a list of (old, new), or a list of such lists,
 # of which the first that fits the source is taken
@@ -360,18 +440,34 @@ VARIANTS = {
     ], topk.plan),
     # the Q >= 5 pass's product alone, bf16 on the tensor cores and f32 on the
     # CUDA cores: no score passes 1e30, so the narrow selection is one
-    # block-wide vote a tile and the wide one keeps only its votes; every
-    # sum is still read, so none is left out
-    "selection cut": ([
-        ("#pragma unroll\n        for (int h = 0; h < 2; ++h) {",
-         "bool cut = false;\n#pragma unroll\n        for (int i = 0; i < 8; ++i)\n"
-         "#pragma unroll\n            for (int j = 0; j < 8; ++j) cut |= acc[i][j] > 1.0e30f;\n"
-         "#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n"
-         "            if (!__syncthreads_or(cut)) break;"),
-        ("if (doc < end && ranks_before(s, (int)doc, kth_v, kth_i)) mine |= 1u << jj;",
-         "if (s > 1.0e30f && doc < end && ranks_before(s, (int)doc, kth_v, kth_i))\n"
-         "                mine |= 1u << jj;"),
-    ], topk.plan),
+    # block-wide vote a tile (the ring's a warp's votes) and the wide one
+    # keeps only its votes; every sum is still read, so none is left out.
+    # The second list of rewrites fits a source before the ring
+    "selection cut": ([[*SELECTION_CUT_TILES, RING_SELECTION_CUT], SELECTION_CUT_TILES],
+                      topk.plan),
+    # the f32 Q >= 5 narrow pass (score_topk_tiles_ring): its ring's depth,
+    # its block's shape at every Q, and its copies without TMA
+    "ring of 3 stages": ([(RING_STAGES, "constexpr int RING_STAGES = 3;")], topk.plan),
+    "ring of 6 stages": ([(RING_STAGES, "constexpr int RING_STAGES = 6;")], topk.plan),
+    "ring of 8 query warps at every Q": ([(RING_SMALL_Q, "constexpr int RING_SMALL_Q = 4;")],
+                                         topk.plan),
+    "ring of 4 query warps at every Q": ([(RING_SMALL_Q, "constexpr int RING_SMALL_Q = 4096;")],
+                                         topk.plan),
+    "ring by cp.async": (RING_BY_CP_ASYNC, topk.plan),
+    # no data moved after the first ring of stages (later stages complete
+    # with 0 bytes over stale tiles): the product, selection and bookkeeping
+    # alone, timed only
+    "ring without copies": ([RING_NO_COPIES], topk.plan),
+    # ... and with no wait after the first ring and no count of readers (so no
+    # copy after it): the product loop alone
+    "ring product loop alone": ([RING_SELECTION_CUT,
+                                 ("            mbar_wait(full_at + 8 * slot",
+                                  "            if (got < RING_STAGES) mbar_wait(full_at + 8 * slot"),
+                                 ("                if (lane == 0) {\n                    __threadfence_block();",
+                                  "                if (lane == 0 && k < 0) {\n"
+                                  "                    __threadfence_block();")],
+                                topk.plan),
+    "ring clocked": (RING_CLOCKED, topk.plan),
     "wide votes only": (WIDE_VOTES_ONLY, topk.plan),
     "wide votes and queueing": (WIDE_SORT_CUT, topk.plan),
     "wide votes, queueing and sort": (WIDE_MERGE_CUT, topk.plan),
@@ -409,6 +505,7 @@ BAR_RULES = {"no bar": None,
              "bar of 32,768 docs": {"max_docs": 32_768}}
 # variants whose output is not the function's: timed, never checked
 CUT = {"stream narrow selection cut", "stream narrow selection and end merge cut",
+       "ring without copies", "ring product loop alone",
        "stream mma selection cut", "selection cut", "wide votes only", "wide votes and queueing",
        "wide votes, queueing and sort"}
 # variants made of "against"'s source too, named "<variant> (against)"
@@ -549,6 +646,9 @@ def launcher(lib: ctypes.CDLL, plan, bar_rule=None):
         lib.score_topk_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i64, i32, i64,
                                           i32, ptr, ptr, ptr, ptr] + [i32] * tree + [ptr]
     mma_lib = hasattr(lib, "score_topk_stream_mma_occupancy")  # else no bf16 Q = 2-4 pass
+    ring_lib = hasattr(lib, "score_topk_tiles_ring_occupancy")  # else f32 narrow Q >= 5 on tiles
+    if ring_lib:
+        lib.score_topk_tiles_ring_occupancy.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 6
     if hasattr(lib, "score_topk_stream_inserts"):
         lib.score_topk_stream_inserts.restype = ctypes.c_ulonglong
     if hasattr(lib, "score_topk_wide_counts"):
@@ -561,10 +661,25 @@ def launcher(lib: ctypes.CDLL, plan, bar_rule=None):
         where the source has it)."""
         return mma_lib and topk.stream_mma_takes(dtype, q, dim, ptr)
 
+    def ring(dtype, q, k):
+        """Whether the call takes score_topk_tiles_ring (topk.ring_takes,
+        where the source has it)."""
+        return ring_lib and topk.ring_takes(dtype, q, k)
+
     def per_sm(dtype, q, k=K, dim=DIM, ptr=0):
         """(shared-memory bytes, blocks per SM, registers, local bytes) of
-        the pass that takes Q=q; the last two None where the source does
-        not report them."""
+        the pass that takes Q=q, then the ring's block queries and tile docs
+        where it takes it; registers and local bytes None where the source
+        does not report them."""
+        if ring(dtype, q, k):
+            key = ("ring", q)
+            if key not in occupancy:
+                out = [ctypes.c_int(-1) for _ in range(6)]
+                err = lib.score_topk_tiles_ring_occupancy(q, k, *map(ctypes.byref, out))
+                if err != 0:
+                    raise RuntimeError(f"ring occupancy query failed: cudaError_t {err}")
+                occupancy[key] = tuple(o.value for o in out)
+            return occupancy[key]
         key = (dtype, min(q, 5), k, dim, mma(dtype, q, dim, ptr))
         bf16 = int(dtype == torch.bfloat16)
         if key not in occupancy:
@@ -584,7 +699,8 @@ def launcher(lib: ctypes.CDLL, plan, bar_rule=None):
 
     def plan_of(q, dtype, k, n=N, dim=DIM, ptr=0):
         sm = torch.cuda.get_device_properties(0).multi_processor_count
-        return plan(q, n, sm, per_sm(dtype, q, k, dim, ptr)[1])
+        block = per_sm(dtype, q, k, dim, ptr)
+        return plan(q, n, sm, block[1], *block[4:])  # the ring: its block queries, tile docs
 
     def run(docs, queries, k=K):
         n, dim = docs.shape
@@ -592,6 +708,8 @@ def launcher(lib: ctypes.CDLL, plan, bar_rule=None):
         rows, n_splits, split_len = plan_of(q, docs.dtype, k, n, dim, docs.data_ptr())
         if mma(docs.dtype, q, dim, docs.data_ptr()):
             rows = topk.PASS_STREAM_MMA
+        elif ring(docs.dtype, q, k):
+            rows = topk.PASS_TILES_RING
 
         def launch(n_splits, split_len, split_docs, bar):
             cand_v = torch.empty((q, n_splits, k), dtype=torch.float32, device=docs.device)
@@ -671,9 +789,12 @@ def main() -> int:
                         help="time BAR_SWEEP (the same at N from 16,384 to 524,288)")
     parser.add_argument("--ordered", action="store_true",
                         help="time ORDERED (Q=32 and 256 at k=256 on corpora stored in order)")
+    parser.add_argument("--ring", action="store_true",
+                        help="time RING_SHAPES (f32 at Q=5 to 257, k=1 to 14: the ring pass)")
     args = parser.parse_args()
     shapes = ((K_SWEEP if args.k_sweep else []) + (WIDE_SHAPES if args.wide else [])
-              + (BAR_SWEEP if args.bar_sweep else []) + (ORDERED if args.ordered else []))
+              + (BAR_SWEEP if args.bar_sweep else []) + (ORDERED if args.ordered else [])
+              + (RING_SHAPES if args.ring else []))
     shapes = [(*shape, N, "random")[:5] if len(shape) < 4 else (*shape, "random")[:5]
               for shape in shapes or SHAPES]  # (q, dtype, k, n, corpus)
     if not torch.cuda.is_available():
@@ -691,7 +812,8 @@ def main() -> int:
         qints = torch.randint(-2, 3, (257, 128), device=dev, generator=gen).float()
         for dtype in (torch.float32, torch.bfloat16):
             for q, k in ((1, K), (4, K), (257, K), (1, 256), (4, 256), (1, 100), (2, 33),
-                         (3, 64), (2, K), (3, 256), (257, 256), (33, 100), (5, 33)):
+                         (3, 64), (2, K), (3, 256), (257, 256), (33, 100), (5, 33), (32, K),
+                         (33, 14), (5, 1)):
                 if is_cut(name):
                     break
                 got = run(ints.to(dtype), qints[:q].to(dtype), k)
@@ -702,7 +824,7 @@ def main() -> int:
         runs[name] = (run, {"ptxas": ptxas, "occupancy_f32_bf16": {
             f"q{q} k{k}": [per_sm(torch.float32, q, k), per_sm(torch.bfloat16, q, k)]
             for q, k in ((1, K), (2, K), (3, K), (4, K), (1, 256), (2, 256), (3, 256),
-                         (4, 256), (5, K), (5, 256))}})
+                         (4, 256), (5, K), (5, 256), (32, K), (256, K))}})
     inputs, queries = {}, {}
     for kind in dict.fromkeys(["random"] + [shape[4] for shape in shapes]):
         docs, queries[kind] = make_corpus(kind, gen, dev)
@@ -775,7 +897,21 @@ def main() -> int:
                     "survivors": survivors / q, "merges": merges.value / q,
                     "survivors_per_split": survivors / (q * n_splits),
                     "merges_per_split": merges.value / (q * n_splits), "n_splits": n_splits}
-        if hasattr(run.lib, "score_topk_wide_clocks"):  # SM cycles by stage
+        if hasattr(run.lib, "score_topk_wide_clocks") and "ring" in name:  # by phase
+            info["ring_clocks"] = {}
+            clocks = (ctypes.c_ulonglong * 4)()
+            for q, dtype, k, n, corpus in shapes:
+                if not topk.ring_takes(dtype, q, k):
+                    continue
+                run.lib.score_topk_wide_clocks(clocks)
+                run(*args_of(q, dtype, k, n, corpus))
+                torch.cuda.synchronize()
+                run.lib.score_topk_wide_clocks(clocks)
+                phases = dict(zip(("wait", "copy", "product", "select"), list(clocks)))
+                info["ring_clocks"][label(q, dtype, k, n, corpus)] = {
+                    **phases, "share": {key: c / sum(phases.values())
+                                        for key, c in phases.items()}}
+        elif hasattr(run.lib, "score_topk_wide_clocks"):  # SM cycles by stage
             info["wide_clocks"] = {}
             clocks = (ctypes.c_ulonglong * 4)()
             for q, dtype, k, n, corpus in shapes:
@@ -798,7 +934,8 @@ def main() -> int:
     for kernel in ("score_topk_tilesIfLb0", "score_topk_tilesIfLb1",
                    "score_topk_tilesI13__nv_bfloat16Lb0", "score_topk_tilesI13__nv_bfloat16Lb1",
                    "score_topk_streamIfLi1ELb0", "score_topk_streamIfLi1ELb1",
-                   "score_topk_stream_mmaILi4"):
+                   "score_topk_stream_mmaILi4", "score_topk_tiles_ringILi4",
+                   "score_topk_tiles_ringILi8"):
         ops = sass_opcodes(shipped_sass, kernel)
         print(json.dumps({f"sass_opcodes shipped {kernel}": ops}), flush=True)
         if "bfloat16" in kernel or "mma" in kernel:  # the tensor cores: HMMA, no f32 FMA loop
