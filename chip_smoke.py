@@ -59,7 +59,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               timed as in phase 3, at the train path's shapes, at the
               experiments' shapes and at edge cases (runs that straddle a
               chunk, short N, ids outside [0, V), a misaligned g), with the
-              scatter-add's plan, blocks per SM and device time by kernel.
+              scatter-add's plan, blocks per SM and device time by kernel;
+              the gather also at the Hub-serve encode's shape, a model
+              rank's shard (most ids outside it), D = 1 to 1,024 at N = 1,
+              31 and 5,003, a table 4 bytes off alignment and an output of
+              more than 2**31 elements (bit-equal to the plain version),
+              with its plan, blocks per SM and a call's host time beside
+              ``F.embedding``'s.
 6. train   -- the word-vocab configuration of ``bench.py``'s
               ``word_vocab_32k_train`` at full width (word vocab 32,768,
               seq 64, batch 16,384, embedding 64, mean tower 128, tied,
@@ -1089,6 +1095,7 @@ def embed_kernels_phase(card: dict, seed: int) -> dict:
                                  f"(max err {err})")
         emit("kernels", kernel="gather_rows", case=case, n=ids.shape[0], d=tab.shape[1],
              table=str(tab.dtype), out=str(out_dtype), max_abs_err=err, bit_equal=True)
+    gather_extra = gather_edge_cases(card, table, main_ids, rng, gen, sm_count)
 
     # the bounds at the experiments' shapes (#4-#6 of PERF.md's table): each
     # input read once, each output written once
@@ -1171,8 +1178,125 @@ def embed_kernels_phase(card: dict, seed: int) -> dict:
                                                    + table_bytes // 2)
     emit("kernels", kernel="gather_rows", case="time #6 exp_pallas_embed2 N 3,145,728 bf16 -> bf16",
          n=3 * MAIN_ROWS, d=WORD_EMB, v=WORD_VOCAB, **row, card=card["nvidia_smi"])
+    gather_row["plan"] = gather_extra.pop("plan")
+    gather_row["blocks_per_sm"] = gather_extra.pop("blocks_per_sm")
+    gather_row["device_ms_by_kernel"] = device_ms_by_kernel(
+        lambda: gather.gather_rows(table, main_ids, torch.bfloat16))
+    gather_row["shapes"] = {"#6 exp_pallas_embed2 N 3,145,728 bf16 -> bf16": row,
+                            **gather_extra.pop("shapes")}
+    gather_row["host_us"] = gather_extra.pop("host_us")
     return {"scatter_add_rows": {"max_abs_err": errs["scatter_add_rows"], **scatter_row},
             "gather_rows": {"max_abs_err": errs["gather_rows"], **gather_row}}
+
+
+def gather_edge_cases(card: dict, table, main_ids, rng, gen, sm_count: int) -> dict:
+    """Kernel #3 beyond the main shape: the Hub-serve encode (32 texts x 64
+    ids) and a model rank's shard of the word step (524,288 ids less the
+    shard's offset over its 16,384 rows, most outside it), timed; D = 1 to
+    1,024 at N = 1, 31 and 5,003 in the four dtype pairs, a table 4 bytes
+    off 16-byte alignment, and an output of more than 2**31 elements; each
+    bit-equal to the plain version. Then the plan at the word step's shape
+    and at the pretrained phase's (4,096 ids of a D=300 f32 table), the
+    blocks an SM of the word step's kernel, and a call's host time at the
+    pretrained and Hub-serve shapes beside ``F.embedding``'s and
+    ``Embedding.forward``'s under inference mode."""
+    import torch.nn.functional as F
+
+    from twotowers_tpu_torch.kernels import gather
+    from twotowers_tpu_torch.kernels.gather_variants import CALLS, per_call_us
+    from twotowers_tpu_torch.models.embeddings import Embedding, EmbeddingSpec
+
+    dev = table.device
+
+    def check(case, tab, ids, out_dtype, timed=False):
+        before = gather.LAUNCHES
+        got = gather.gather_rows(tab, ids, out_dtype)
+        torch.cuda.synchronize()
+        want = gather.gather_rows_reference(tab, ids, out_dtype)
+        if gather.LAUNCHES != before + 1 or not torch.equal(got, want):
+            raise AssertionError(f"gather {case}: not bit-equal to the plain version")
+        del got, want
+        row = {"n": ids.shape[0], "d": tab.shape[1], "table": str(tab.dtype),
+               "out": str(out_dtype), "bit_equal": True}
+        if timed:
+            owned = ids[(ids >= 0) & (ids < tab.shape[0])]
+            outside = float(1 - owned.numel() / ids.numel())
+            ids64, lib_table = ids.long(), tab.to(out_dtype)
+            row.update(
+                outside=outside,
+                ms=cuda_ms(lambda: gather.gather_rows(tab, ids, out_dtype)),
+                device_ms_by_kernel=device_ms_by_kernel(
+                    lambda: gather.gather_rows(tab, ids, out_dtype), reps=100),
+                plain_ms=cuda_ms(lambda: gather.gather_rows_reference(tab, ids, out_dtype)),
+                # F.embedding refuses ids outside the table
+                library_ms=None if outside else cuda_ms(lambda: F.embedding(ids64, lib_table)))
+            row["bound_ms"], row["bound_by"] = bytes_bound(
+                ids.numel() * 4 + int(torch.unique(owned).numel()) * tab.shape[1]
+                * tab.element_size() + ids.numel() * tab.shape[1] * out_dtype.itemsize)
+        emit("kernels", kernel="gather_rows", case=case, **row, card=card["nvidia_smi"])
+        return row
+
+    shapes = {}
+    serve_ids = torch.from_numpy(zipf_ids(rng, WORD_VOCAB, 32 * WORD_SEQ)).to(dev)
+    shapes["Hub-serve encode 32 x 64 f32 -> bf16"] = check(
+        "Hub-serve encode 32 x 64 f32 -> bf16", table, serve_ids, torch.bfloat16, timed=True)
+    rows = WORD_VOCAB // 2  # model rank 1 of 2 holds rows 16,384-32,767
+    shard_ids = main_ids[: MAIN_ROWS // 2] - rows
+    shapes["model rank 1's shard f32 -> bf16"] = check(
+        "model rank 1's shard f32 -> bf16", table[rows:], shard_ids, torch.bfloat16, timed=True)
+    for dim in (1, 3, 12, 50, 300, 1024):
+        tab = torch.randn(700, dim, device=dev, generator=gen)
+        for n in (1, 31, 5003):
+            ids = torch.randint(-3, 703, (n,), device=dev, generator=gen, dtype=torch.int32)
+            for table_dtype in (torch.float32, torch.bfloat16):
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    check(f"d {dim} n {n} {table_dtype} -> {out_dtype}", tab.to(table_dtype),
+                          ids, out_dtype)
+    storage = torch.randn(WORD_VOCAB * 300 + 1, device=dev, generator=gen)
+    off = storage[1:].view(WORD_VOCAB, 300)  # 4 bytes off 16-byte alignment: one column a lane
+    if gather.plan(4096, 300, off.dtype, torch.float32, off.data_ptr(), 0, sm_count).elems != 1:
+        raise AssertionError("a table off 16-byte alignment must take one column a lane")
+    for out_dtype in (torch.float32, torch.bfloat16):
+        check(f"table 4 bytes off alignment -> {out_dtype}", off, main_ids[:5003], out_dtype)
+    big = torch.randint(-3, WORD_VOCAB + 3, (2**25 + 7,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    check("output of 2**31 + 448 elements f32 -> bf16", table, big, torch.bfloat16)
+    del big, storage, off
+
+    main = gather.plan(MAIN_ROWS, WORD_EMB, table.dtype, torch.bfloat16, table.data_ptr(), 0,
+                       sm_count)
+    pre_table = torch.randn(WORD_VOCAB, 300, device=dev, generator=gen)
+    pre_ids = torch.from_numpy(zipf_ids(rng, WORD_VOCAB, 128 * 32)).to(dev)
+    pre = gather.plan(pre_ids.numel(), 300, pre_table.dtype, torch.float32,
+                      pre_table.data_ptr(), 0, sm_count)
+    plans = {"word step": {**vars(main), "tile_rows": main.tile_rows},
+             "pretrained batch": {**vars(pre), "tile_rows": pre.tile_rows}}
+    emit("kernels", kernel="gather_rows", case="plans", plans=plans)
+    blocks = gather.occupancy(table.dtype, torch.bfloat16, main)
+    if blocks < gather.BLOCKS_PER_SM:
+        raise AssertionError(f"the word step's gather holds {blocks} blocks an SM, "
+                             f"not the {gather.BLOCKS_PER_SM} its grid counts on")
+
+    # a call's host time: the serving and pretrained lookups spend far more
+    # time on the host than on the card; the three calls take turns
+    host = {}
+    for name, tab, ids, shape, out_dtype, kind, trainable in [
+            ("pretrained batch 128 x 32, D=300 f32 -> f32", pre_table, pre_ids, (128, 32),
+             torch.float32, "word2vec", False),
+            ("Hub-serve encode 32 x 64, D=64 f32 -> bf16", table, serve_ids, (32, 64),
+             torch.bfloat16, "lookup", True)]:
+        module = Embedding(EmbeddingSpec(kind=kind, vocab_size=tab.shape[0],
+                                         embedding_dim=tab.shape[1], trainable=trainable)).to(dev)
+        with torch.no_grad():
+            module.table.copy_(tab)
+        ids2d, ids64, lib_table = ids.reshape(shape), ids.long(), tab.to(out_dtype)
+        host[name] = per_call_us({
+            "gather_rows": (lambda: gather.gather_rows(tab, ids, out_dtype), False),
+            "F.embedding": (lambda: F.embedding(ids64, lib_table), False),
+            "Embedding.forward (inference_mode)": (lambda: module(ids2d, out_dtype), True)})
+    emit("kernels", kernel="gather_rows", case="host us a call", calls=CALLS, **host,
+         card=card["nvidia_smi"])
+    return {"shapes": shapes, "plan": plans, "blocks_per_sm": blocks, "host_us": host}
 
 
 # ---- 6. train -----------------------------------------------------------------
@@ -2782,6 +2906,12 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "library": "F.embedding(ids.long(), table.bfloat16()), the table cast beforehand",
         "shape": {**embed_shape, "table": "float32", "out": "bfloat16"},
+        "plan": embed_rows["gather_rows"]["plan"],
+        "blocks_per_sm": embed_rows["gather_rows"]["blocks_per_sm"],
+        "other_shapes": {name: {key: row[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for name, row in embed_rows["gather_rows"]["shapes"].items()},
+        "host_us": embed_rows["gather_rows"]["host_us"],
         "pretrained": pretrained["gather"],
         "card": card["nvidia_smi"],
     }]}), flush=True)

@@ -24,9 +24,10 @@ import torch
 
 from twotowers_tpu_torch.kernels import gather, scatter_add
 from twotowers_tpu_torch.kernels.gather import gather_rows, gather_rows_reference
+from twotowers_tpu_torch.models import embeddings
 from twotowers_tpu_torch.kernels.scatter_add import (
     CHUNK, plan, scatter_add_rows, scatter_add_rows_reference, scatter_add_sorted, sort_ids)
-from twotowers_tpu_torch.models.embeddings import GatherScatterGrad
+from twotowers_tpu_torch.models.embeddings import Embedding, EmbeddingSpec, GatherScatterGrad
 
 
 def scatter_case(name, seed=0):
@@ -190,6 +191,139 @@ def test_sort_ids_is_stable():
     assert perm.dtype == torch.int64
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+PAIRS = [(F32, F32), (F32, BF16), (BF16, F32), (BF16, BF16)]
+# dim -> (elems, lanes) of an aligned f32 -> f32 plan, then of a pair with a
+# bf16 side: a lane's store is 16 bytes where D is a multiple of its columns
+GATHER_PLANS = {1: ((1, 1), (1, 1)), 3: ((1, 4), (1, 4)), 12: ((4, 4), (4, 4)),
+                50: ((2, 32), (2, 32)), 64: ((4, 16), (8, 8)), 130: ((2, 32), (2, 32)),
+                300: ((4, 32), (4, 32)), 1024: ((4, 32), (8, 32))}
+# dim -> lanes with the table one element off 16-byte alignment: one column a lane
+GATHER_LANES_OFF = {1: 1, 3: 4, 12: 16, 50: 32, 64: 32, 130: 32, 300: 32, 1024: 32}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("table_dtype,out_dtype", PAIRS)
+@pytest.mark.parametrize("dim", sorted(GATHER_PLANS))
+def test_gather_plan(dim, table_dtype, out_dtype, aligned):
+    """The gather's launch plan, on the CPU: columns a lane, lanes a row,
+    the load and store widths, rows in flight and the grid of a word-step
+    lookup (1,048,576 ids on 132 SMs)."""
+    n, sm_count = 1_048_576, 132
+    table_ptr = 0 if aligned else table_dtype.itemsize  # one element off 16 bytes
+    p = gather.plan(n, dim, table_dtype, out_dtype, table_ptr, 256, sm_count)
+    if aligned:
+        elems, lanes = GATHER_PLANS[dim][table_dtype != out_dtype or table_dtype == BF16]
+    else:
+        elems, lanes = 1, GATHER_LANES_OFF[dim]
+    assert (p.elems, p.lanes) == (elems, lanes)
+    assert (p.load_bytes, p.store_bytes) == (elems * table_dtype.itemsize,
+                                             elems * out_dtype.itemsize)
+    rows = min(4, lanes)  # no more rows than lanes: a tile's ids are one warp's load
+    assert p.rows == rows and p.tile_rows == 32 // lanes * rows <= 32
+    assert p.blocks == sm_count * gather.BLOCKS_PER_SM  # a full card of blocks, striding
+
+
+def test_gather_plan_widths_at_the_lookup_shapes():
+    """f32 -> bf16 at D=64: two 16-byte loads into one 16-byte store; f32 ->
+    f32 at D=300: 16 bytes each way, 75 slabs over 32 lanes; bf16 -> f32: one
+    16-byte load, 32 bytes stored; an output 8 bytes off halves the slab."""
+    word = gather.plan(1_048_576, 64, F32, BF16, 0, 0, 132)
+    assert (word.elems, word.load_bytes, word.store_bytes, word.lanes) == (8, 32, 16, 8)
+    pretrained = gather.plan(4096, 300, F32, F32, 0, 0, 132)
+    assert (pretrained.elems, pretrained.load_bytes, pretrained.lanes) == (4, 16, 32)
+    widen = gather.plan(4096, 64, BF16, F32, 0, 0, 132)
+    assert (widen.load_bytes, widen.store_bytes) == (16, 32)
+    out_off = gather.plan(4096, 64, F32, BF16, 0, 8, 132)
+    assert (out_off.elems, out_off.store_bytes) == (4, 8)
+    # the C entry's code: elems, log2 lanes and rows, then the dtypes' bits
+    assert word.code == 8 | 3 << 4 | 4 << 8
+    assert pretrained.code | gather.dtype_bits(F32, F32) == 4 | 5 << 4 | 1 << 8
+    assert gather.dtype_bits(BF16, F32) == 1 << 16 and gather.dtype_bits(F32, BF16) == 1 << 17
+
+
+@pytest.mark.parametrize("n,dim,pair,rows,blocks", [
+    (4096, 300, (F32, F32), 1, 512),     # the pretrained batch: 4,096 tiles of a row
+    (2048, 64, (F32, BF16), 1, 64),      # one serving encode: 512 tiles of 4 rows
+    (524_288, 64, (F32, BF16), 4, 528),  # a model rank's shard of the word step
+    (1, 64, (BF16, BF16), 1, 1),         # one row: one block
+    (67_568, 64, (F32, BF16), 2, 528),   # 4,223 tiles of 16 rows: one short of the card
+    (67_584, 64, (F32, BF16), 4, 528),   # 4,224 tiles of 16 rows fill the card's warps
+    (16_896, 1, (F32, F32), 1, 66),      # one-lane teams: 528 tiles of 32 rows
+    (9_000, 8, (F32, F32), 1, 71),       # two-lane teams: 563 tiles of 16 rows
+])
+def test_gather_plan_rows_in_flight_and_grid(n, dim, pair, rows, blocks):
+    """The most rows in flight (4, 2, 1, at most the team's lanes) whose
+    tiles fill every warp the card holds, else 1; a warp a tile, blocks of 8
+    warps up to a full card."""
+    p = gather.plan(n, dim, *pair, 0, 0, 132)
+    assert (p.rows, p.blocks) == (rows, blocks)
+    assert p.rows in gather.ROWS
+
+
+@pytest.mark.parametrize("table_shape,ids,table_dtype,out_dtype,match", [
+    ((16, 4), torch.zeros(8, dtype=torch.int64), F32, F32, "ids must be int32"),
+    ((16, 4), torch.zeros(8, dtype=torch.int32), torch.float16, F32, "float32 or bfloat16"),
+    ((16, 4), torch.zeros(8, dtype=torch.int32), F32, torch.float16, "float32 or bfloat16"),
+    ((16,), torch.zeros(8, dtype=torch.int32), F32, F32, r"table must be \(V, D\)"),
+    ((16, 4), torch.zeros((2, 4), dtype=torch.int32), F32, F32, r"table must be \(V, D\)"),
+    ((16, 4), torch.zeros(0, dtype=torch.int32), F32, F32, "1 <= N < 2\\*\\*31"),
+    ((16, 0), torch.zeros(8, dtype=torch.int32), F32, F32, "non-empty"),
+    ((16, 4), torch.zeros(8, dtype=torch.int32), F32, F32, "one CUDA device"),
+])
+def test_gather_rejects_what_the_kernel_does_not_take(table_shape, ids, table_dtype, out_dtype,
+                                                      match):
+    """The wrapper's checks keep their refusals and messages."""
+    with pytest.raises(ValueError, match=match):
+        gather.check_args(torch.zeros(table_shape, dtype=table_dtype), ids, out_dtype)
+
+
+def _counting_apply(monkeypatch):
+    calls = []
+    apply = GatherScatterGrad.apply
+
+    def counted(*args):
+        calls.append(1)
+        return apply(*args)
+
+    monkeypatch.setattr(GatherScatterGrad, "apply", counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode,node", [("grad", True), ("no_grad", False),
+                                       ("inference_mode", False), ("frozen table", False)])
+def test_lookup_without_a_gradient_calls_the_gather_directly(monkeypatch, mode, node):
+    """Under no_grad or inference_mode, or for a table that wants no
+    gradient, the lookup calls ``embeddings.gather_rows`` directly, with the
+    gradient path's bits and no ``GatherScatterGrad`` node; with a gradient
+    it goes through the autograd Function."""
+    rng = np.random.default_rng(5)
+    spec = EmbeddingSpec(kind="lookup", vocab_size=700, embedding_dim=12,
+                         trainable=mode != "frozen table")
+    module = Embedding(spec)
+    with torch.no_grad():
+        module.table.copy_(torch.from_numpy(rng.normal(size=(700, 12)).astype(np.float32)))
+    ids = torch.from_numpy(rng.integers(0, 700, size=(3, 7)).astype(np.int64))
+    want = GatherScatterGrad.apply(module.table.detach(), ids, torch.bfloat16)
+    calls = _counting_apply(monkeypatch)
+    gathers = []
+    direct = embeddings.gather_rows
+    monkeypatch.setattr(embeddings, "gather_rows",
+                        lambda *args: gathers.append(1) or direct(*args))
+    if mode == "no_grad":
+        with torch.no_grad():
+            out = module(ids, torch.bfloat16)
+    elif mode == "inference_mode":
+        with torch.inference_mode():
+            out = module(ids, torch.bfloat16)
+    else:
+        out = module(ids, torch.bfloat16)
+    assert (len(calls), len(gathers)) == (int(node), 1)
+    assert (out.grad_fn is not None) == node and out.requires_grad == node
+    assert out.shape == (3, 7, 12) and out.dtype == torch.bfloat16
+    assert torch.equal(out.detach(), want)
+
+
 # ---- the kernels on the card --------------------------------------------------
 
 @pytest.mark.cuda
@@ -247,20 +381,66 @@ def test_scatter_add_kernel_writes_the_table_dtype(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim", [64, 130, 32])
-@pytest.mark.parametrize("table_dtype,out_dtype", [
-    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
-def test_gather_kernel_is_bit_equal(cuda, dim, table_dtype, out_dtype):
+@pytest.mark.parametrize("n", [1, 31, 5003])
+@pytest.mark.parametrize("dim", [1, 3, 12, 32, 50, 64, 130, 300, 1024])
+@pytest.mark.parametrize("table_dtype,out_dtype", PAIRS)
+def test_gather_kernel_is_bit_equal(cuda, dim, table_dtype, out_dtype, n):
     rng = np.random.default_rng(1)
     table = torch.from_numpy(rng.normal(size=(700, dim)).astype(np.float32)).to(cuda, table_dtype)
-    ids = torch.from_numpy(rng.integers(0, 700, size=5003).astype(np.int32)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, 700, size=n).astype(np.int32)).to(cuda)
     before = gather.LAUNCHES
     got = gather_rows(table, ids, out_dtype)
     torch.cuda.synchronize()
     assert gather.LAUNCHES == before + 1
     assert got.dtype == out_dtype
     assert torch.equal(got, gather_rows_reference(table, ids, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [64, 300])
+@pytest.mark.parametrize("out_dtype", [F32, BF16])
+def test_gather_kernel_takes_a_table_off_alignment(cuda, dim, out_dtype):
+    """A table view 4 bytes off 16-byte alignment: one column a lane."""
+    rng = np.random.default_rng(4)
+    storage = torch.from_numpy(rng.normal(size=700 * dim + 1).astype(np.float32)).to(cuda)
+    table = storage[1:].view(700, dim)
+    assert table.data_ptr() % 16 == 4
+    assert gather.plan(5003, dim, F32, out_dtype, table.data_ptr(), 0, 132).elems == 1
+    ids = torch.from_numpy(rng.integers(-5, 705, size=5003).astype(np.int32)).to(cuda)
+    before = gather.LAUNCHES
+    got = gather_rows(table, ids, out_dtype)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    assert torch.equal(got, gather_rows_reference(table, ids, out_dtype))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_writes_an_output_past_2_31_elements(cuda):
+    """33,554,439 ids x 64 bf16: 2**31 + 448 output elements (4.3 GB), so
+    the output's addresses need more than 31 bits."""
+    n, dim = 2**25 + 7, 64
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    table = torch.randn(32_768, dim, device=cuda, generator=gen)
+    ids = torch.randint(-3, 32_771, (n,), device=cuda, generator=gen, dtype=torch.int32)
+    before = gather.LAUNCHES
+    got = gather_rows(table, ids, BF16)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1 and got.numel() >= 2**31
+    assert torch.equal(got, gather_rows_reference(table, ids, BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype,out_dtype", PAIRS)
+def test_gather_kernels_hold_the_planned_blocks(cuda, table_dtype, out_dtype):
+    """Every build of the kernel fits the BLOCKS_PER_SM blocks an SM that
+    the plan's grid counts on."""
+    for elems in (8, 4, 2, 1):
+        if elems * min(table_dtype.itemsize, out_dtype.itemsize) > 16:
+            continue
+        for rows in gather.ROWS:
+            p = gather.Plan(elems=elems, lanes=8, rows=rows, blocks=1, load_bytes=0,
+                            store_bytes=0)
+            assert gather.occupancy(table_dtype, out_dtype, p) >= gather.BLOCKS_PER_SM
 
 
 def test_gather_plain_version_reads_ids_outside_the_table_as_zero_rows():

@@ -134,3 +134,30 @@ def test_frozen_table_gets_no_gradient(np_rng):
     assert not module.table.requires_grad
     out = module(torch.from_numpy(np_rng.integers(0, 640, size=(2, 5)).astype(np.int32)))
     assert not out.requires_grad
+
+
+@pytest.mark.parametrize("grad", [True, False])
+@pytest.mark.parametrize("dim,bf16", [(300, False), (64, True)])
+def test_word_scale_embedding_matches_take_at_the_lookup_widths(np_rng, dim, bf16, grad):
+    """At the pretrained width (D=300, f32) and the word step's (D=64, bf16
+    compute) the module's forward is bit-equal to
+    ``jnp.take(table.astype(dtype), ids)``, with a gradient wanted (through
+    GatherScatterGrad) and without (inference mode: the gather alone)."""
+    vocab = 700
+    module = Embedding(EmbeddingSpec(kind="lookup", vocab_size=vocab, embedding_dim=dim))
+    table = np_rng.normal(size=(vocab, dim)).astype(np.float32)
+    with torch.no_grad():
+        module.table.copy_(torch.from_numpy(table))
+    ids = np_rng.integers(0, vocab, size=(4, 9)).astype(np.int32)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if grad:
+        out = module(torch.from_numpy(ids), dtype)
+        assert type(out.grad_fn).__name__.startswith("GatherScatterGradBackward")
+    else:
+        with torch.inference_mode():
+            out = module(torch.from_numpy(ids), dtype)
+        assert out.grad_fn is None
+    want = jnp.take(jnp.asarray(table).astype(jnp.bfloat16 if bf16 else jnp.float32),
+                    jnp.asarray(ids), axis=0).astype(jnp.float32)
+    assert out.dtype == dtype and out.shape == (4, 9, dim)
+    np.testing.assert_array_equal(out.detach().float().numpy(), np.asarray(want))

@@ -13,11 +13,13 @@ seed comes from ``hashlib``, not from Python's per-process ``hash()`` as in
 the JAX package, so every process builds the same table.
 
 At a word-scale vocabulary (above ``_ONE_HOT_MAX_VOCAB``) the lookup is
-``GatherScatterGrad``, the counterpart of the JAX package's
-``_take_scatter_grad``: the gather kernel forward, the scatter-add kernel
-backward. A frozen embedding (``trainable: false``, the pretrained kinds'
-default) gets no gradient, so the scatter-add never runs for it, and it is
-kept out of the optimizer.
+``lookup_rows``: where a gradient is wanted, ``GatherScatterGrad``, the
+counterpart of the JAX package's ``_take_scatter_grad``: the gather kernel
+forward, the scatter-add kernel backward; under ``no_grad`` or
+``inference_mode``, or for a table that wants no gradient, the gather
+kernel alone, without an autograd node. A frozen embedding (``trainable:
+false``, the pretrained kinds' default) gets no gradient, so the
+scatter-add never runs for it, and it is kept out of the optimizer.
 """
 
 from __future__ import annotations
@@ -152,6 +154,20 @@ class GatherScatterGrad(torch.autograd.Function):
         return d_table, None, None
 
 
+def lookup_rows(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``table[ids].to(dtype)``, (..., D), by the gather kernel (its plain
+    version on CPU tensors): through ``GatherScatterGrad`` where autograd
+    records and the table wants a gradient, else by a direct call, which
+    skips the autograd Function's cost on the serving and frozen paths."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return GatherScatterGrad.apply(table, ids, dtype)
+    flat = ids.reshape(-1)
+    if flat.dtype != torch.int32:
+        flat = flat.to(torch.int32)
+    out = gather_rows(table, flat, dtype)
+    return out.reshape(*ids.shape, table.shape[1])
+
+
 class Embedding(nn.Module):
     """Lookup table with a zero padding row, plus learned positions for the
     ``positional`` kind."""
@@ -189,7 +205,7 @@ class Embedding(nn.Module):
         if self.spec.vocab_size <= _ONE_HOT_MAX_VOCAB:
             out = F.embedding(ids, self.table).to(dtype)
         else:
-            out = GatherScatterGrad.apply(self.table, ids, dtype)
+            out = lookup_rows(self.table, ids, dtype)
         return self.add_positions(out, ids, dtype)
 
     def add_positions(self, out: torch.Tensor, ids: torch.Tensor,

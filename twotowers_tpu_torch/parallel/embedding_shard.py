@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..models.embeddings import GatherScatterGrad
+from ..models.embeddings import lookup_rows
 from .collectives import AllReduceSum
 from .mesh import MODEL_AXIS, axis_group, axis_index
 
@@ -47,5 +47,5 @@ def sharded_embed_ids(
     this rank holds ``local_table`` (rows, D); returns (..., L, D) in
     ``dtype``, the same on every rank of the model group."""
     offset = axis_index(mesh, MODEL_AXIS) * local_table.shape[0]
-    local = GatherScatterGrad.apply(local_table, ids - offset, dtype)
+    local = lookup_rows(local_table, ids - offset, dtype)
     return AllReduceSum.apply(local, axis_group(mesh, MODEL_AXIS))
