@@ -1,0 +1,19 @@
+"""Median host ms of the program's span ``readback``: ``unpack_topk``'s cat of
+one call's scores and indices, their copy to the host (which waits on kernel
+#1) and the views. The span is recorded by
+``twotowers_tpu_torch/utils/tracing.py`` while the profiler runs, so this
+reads the traced part of the window; a program without the span gives no
+reading."""
+
+from benchmark.measure import percentile
+
+SPAN = "readback"
+
+
+def read(run):
+    try:
+        from twotowers_tpu_torch.utils import tracing
+    except ImportError:
+        return None
+    durations = [s.end_ns - s.start_ns for s in tracing.spans() if s.name == SPAN]
+    return percentile(durations, 50) * 1e-6 if durations else None

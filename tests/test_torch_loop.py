@@ -91,7 +91,8 @@ def test_epoch_matches_jax(tmp_path, np_rng, jax_tpu_route):  # noqa: F811
         state, got = train_epoch(step, state, pipe, 16, epoch=1, seed=3, metric_logger=log)
 
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
-    assert set(got) == set(want) and state.step == int(jax_state.step) == 4
+    # the port drops the JAX package's unread avg_batch_time
+    assert set(got) == set(want) - {"avg_batch_time"} and state.step == int(jax_state.step) == 4
     assert _jsonl_keys(tmp_path / "port" / "r_metrics.jsonl") == \
         _jsonl_keys(tmp_path / "jax" / "r_metrics.jsonl")
     got_params = params_to_jax(state.model)

@@ -22,6 +22,7 @@ from ..ops.topk_score import score_topk
 from ..tokenizers.base import BaseTokenizer
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
+from ..utils.tracing import span
 from .base import BaseSearch
 
 logger = get_logger("index.two_tower")
@@ -37,10 +38,11 @@ def unpack_topk(scores: torch.Tensor, indices: torch.Tensor) -> Tuple[np.ndarray
     """(Q, k) scores and int32 indices on the host after ONE device-to-host
     copy: the indices ride beside the scores as their int32 bit patterns,
     exact at any corpus size."""
-    k = scores.shape[1]
-    packed = torch.cat([scores.float(), indices.to(torch.int32).view(torch.float32)],
-                       dim=1).cpu().numpy()
-    return packed[:, :k], packed[:, k:].view(np.int32)
+    with span("readback"):
+        k = scores.shape[1]
+        packed = torch.cat([scores.float(), indices.to(torch.int32).view(torch.float32)],
+                           dim=1).cpu().numpy()
+        return packed[:, :k], packed[:, k:].view(np.int32)
 
 
 class TwoTowerSearch(BaseSearch):
@@ -70,14 +72,16 @@ class TwoTowerSearch(BaseSearch):
 
     def _encode_texts_device(self, texts: Sequence[str], tower: str) -> torch.Tensor:
         """(N, D) float32 unit vectors, left on the device."""
-        ids = torch.from_numpy(
-            self.tokenizer.encode_batch(list(texts), self.max_length)
-        ).to(self.device)
         bs = self.encode_batch_size
-        with torch.inference_mode():
-            chunks = [self.model.encode(ids[start:start + bs], tower)
-                      for start in range(0, max(len(ids), 1), bs)]
-        return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        with span("encode", texts=len(texts), chunks=-(-max(len(texts), 1) // bs)):
+            with span("encode.tokenize"):
+                ids = torch.from_numpy(
+                    self.tokenizer.encode_batch(list(texts), self.max_length)
+                ).to(self.device)
+            with span("encode.tower"), torch.inference_mode():
+                chunks = [self.model.encode(ids[start:start + bs], tower)
+                          for start in range(0, max(len(ids), 1), bs)]
+                return chunks[0] if len(chunks) == 1 else torch.cat(chunks)
 
     def _encode_texts(self, texts: Sequence[str], tower: str) -> np.ndarray:
         return self._encode_texts_device(texts, tower).cpu().numpy()
@@ -88,15 +92,17 @@ class TwoTowerSearch(BaseSearch):
         self._doc_matrix = torch.cat([vecs.to(self.device), pad.to(self.device)])
 
     def index_documents(self, documents: Sequence[str]) -> None:
-        start = time.time()
+        """Encode ``documents`` into the index; the logged time waits for
+        the device."""
+        start = time.perf_counter()
         self.documents = list(documents)
         self._n_docs = len(self.documents)
         self._set_matrix(self._encode_texts_device(self.documents, "document"))
-        logger.info(
-            "Indexed %d documents in %.3fs (%.0f docs/s)",
-            self._n_docs, time.time() - start,
-            self._n_docs / max(time.time() - start, 1e-9),
-        )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - start
+        logger.info("Indexed %d documents in %.3fs (%.0f docs/s)",
+                    self._n_docs, seconds, self._n_docs / max(seconds, 1e-9))
 
     # ---- search --------------------------------------------------------------
 
@@ -107,13 +113,15 @@ class TwoTowerSearch(BaseSearch):
         if self._doc_matrix is None:
             raise RuntimeError("No index built; call index_documents or load_index")
         top_k = min(top_k, self._n_docs)
-        q_vecs = self._encode_texts_device(list(queries), "query")
-        scores, indices = unpack_topk(
-            *score_topk(self._doc_matrix, q_vecs, top_k, self._n_docs))
-        return [
-            [(self.documents[int(i)], float(s)) for s, i in zip(qs, qi)]
-            for qs, qi in zip(scores, indices)
-        ]
+        with span("search.batch", queries=len(queries), k=top_k):
+            q_vecs = self._encode_texts_device(list(queries), "query")
+            scores, indices = unpack_topk(
+                *score_topk(self._doc_matrix, q_vecs, top_k, self._n_docs))
+            with span("search.results"):
+                return [
+                    [(self.documents[int(i)], float(s)) for s, i in zip(qs, qi)]
+                    for qs, qi in zip(scores, indices)
+                ]
 
     def search(self, query: str, top_k: int = 5) -> List[Tuple[str, float]]:
         return self.search_batch([query], top_k)[0]

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.topk import MAX_DIM, MAX_K, score_topk_cuda
+from ..utils.tracing import span
 
 # the score of rows at or past n_docs (score_topk_xla's NEG_INF)
 NEG_INF = -1e30
@@ -120,11 +121,18 @@ def score_topk(
     ``kernel_takes`` the shape, else ``score_topk_torch``; for CPU tensors
     the plain formula of that route (``score_topk_plain``). ``k < 0``
     raises ValueError on every route, as ``lax.top_k`` does; ``k = 0``
-    gives empty (Q, 0) results."""
+    gives empty (Q, 0) results. While a profiler runs, the call is the span
+    ``score_topk`` with its shapes and its route (``plain``, ``kernel`` or
+    ``torch``)."""
     if k < 0:
         raise ValueError(f"k argument to top_k must be nonnegative, got {k}")
     if doc_matrix.device.type == "cpu" and queries.device.type == "cpu":
-        return score_topk_plain(doc_matrix, queries, k, n_docs)
-    if kernel_takes(doc_matrix, k):
-        return score_topk_cuda(doc_matrix, queries, k, n_docs)
-    return score_topk_torch(doc_matrix, queries, k, n_docs)
+        route, fn = "plain", score_topk_plain
+    elif kernel_takes(doc_matrix, k):
+        route, fn = "kernel", score_topk_cuda
+    else:
+        route, fn = "torch", score_topk_torch
+    with span("score_topk", n_docs=doc_matrix.shape[0] if n_docs is None else n_docs,
+              dim=doc_matrix.shape[1], queries=queries.shape[0], k=k, dtype=doc_matrix.dtype,
+              route=route):
+        return fn(doc_matrix, queries, k, n_docs)

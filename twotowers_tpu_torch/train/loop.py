@@ -8,7 +8,8 @@ one step late, so the host queues the next step before it waits on the
 card. The epoch loss is the mean of batch losses weighted by their real
 samples. ``profile: {trace_dir: DIR}`` traces the first epoch that runs
 with ``torch.profiler`` (host activity, and the card's where the model is
-on it) and writes a Chrome trace (``*.pt.trace.json``) into ``DIR``.
+on it) and writes a Chrome trace (``*.pt.trace.json``) into ``DIR``, where
+the epoch's spans (``utils/tracing.py``) name each step's phases.
 
 ``mesh: {data: N, model: M, shard_vocab}`` trains over a process group of
 N * M ranks (``parallel/``): each rank takes its data rank's rows of every
@@ -33,7 +34,6 @@ import contextlib
 import time
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -41,6 +41,7 @@ from ..convert import load_params, opt_state_from_jax, opt_state_to_jax, params_
 from ..data.batching import Batch, iterate_batches, num_batches, prefetch_to_device
 from ..parallel.mesh import is_writer
 from ..utils.logging import Timer, get_logger
+from ..utils.tracing import span
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .metrics import MetricLogger
 from .pipeline import Pipeline, build_pipeline
@@ -85,6 +86,10 @@ def train_epoch(
     mesh's data rows) before it is copied to the device.
     ``performance/batch_time`` is host wall-clock from a step's dispatch to
     the next step's dispatch, since the metrics are read one step late.
+    While a profiler runs, the epoch is the span ``train.epoch`` and each
+    step three inside it: ``train.batch`` (the next batch, assembled and
+    copied), ``train.step`` (the step's dispatch) and ``train.drain`` (the
+    one-step-late read of the metrics, where the host waits on the device).
     """
     arity = pipeline.loss_def.arity
     arrays = pipeline.dataset.arrays()
@@ -93,7 +98,6 @@ def train_epoch(
 
     total_loss = 0.0
     sample_count = 0
-    batch_times = []
     pending = None  # (metrics, num_real, batch_start) read one step late
 
     def drain(pending, batch_idx):
@@ -101,7 +105,6 @@ def train_epoch(
         metrics, real, batch_start = pending
         host = {k: float(v) for k, v in metrics.items()}
         batch_time = time.time() - batch_start
-        batch_times.append(batch_time)
         total_loss += host["loss"] * real
         sample_count += real
         if metric_logger is not None:
@@ -121,26 +124,32 @@ def train_epoch(
     batches = iterate_batches(arrays, batch_size, shuffle=True, seed=seed + epoch)
     if batch_placer is not None:
         batches = map(batch_placer, batches)
-    batch_iter = prefetch_to_device(batches, device=_device_of(state.model))
+    n_batches = num_batches(arrays[0].shape[0], batch_size)  # iterate_batches' count
     last_host = None
-    for batch_idx, batch in enumerate(batch_iter):
-        batch_start = time.time()
-        state, metrics = train_step(
-            state, batch.queries, batch.positives,
-            _negatives_for_arity(batch, arity), batch.weights,
-        )
+    with span("train.epoch", epoch=epoch):
+        batch_iter = prefetch_to_device(batches, device=_device_of(state.model))
+        for batch_idx in range(n_batches):
+            with span("train.batch"):
+                batch = next(batch_iter)
+            batch_start = time.time()
+            with span("train.step", step=batch_idx, rows=batch.num_real):
+                state, metrics = train_step(
+                    state, batch.queries, batch.positives,
+                    _negatives_for_arity(batch, arity), batch.weights,
+                )
+            if pending is not None:
+                with span("train.drain"):
+                    last_host = drain(pending, batch_idx - 1)
+            pending = (metrics, batch.num_real, batch_start)
         if pending is not None:
-            last_host = drain(pending, batch_idx - 1)
-        pending = (metrics, batch.num_real, batch_start)
-    if pending is not None:
-        last_host = drain(pending, num_batches(len(pipeline.dataset), batch_size) - 1)
+            with span("train.drain"):
+                last_host = drain(pending, n_batches - 1)
 
     epoch_time = timer.stop()
     epoch_loss = total_loss / sample_count if sample_count else float("inf")
     metrics_out = {
         "loss": epoch_loss,
         "time": epoch_time,
-        "avg_batch_time": float(np.mean(batch_times)) if batch_times else 0.0,
         "samples_per_second": sample_count / max(epoch_time, 1e-9),
     }
     logger.info(
