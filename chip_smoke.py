@@ -376,21 +376,24 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
                                      f"flight: {block}")
 
     # f32 docs at Q >= 5 and k <= WIDE_K take score_topk_tiles_ring: a TMA
-    # ring of doc tiles, fmaf on the CUDA cores, a selection a warp's own. Both
-    # block shapes (4 x 2 warps of queries x docs at Q <= 32, 8 x 1 above): no
-    # spills, topk.ring_smem's bytes and topk.ring_block's shape, 2 blocks an SM
+    # ring of doc tiles, fmaf on the CUDA cores, a selection a warp's own. Each
+    # block (4 x 2 warps of queries x docs at Q <= 32, 8 x 1 above, with 6
+    # docs a lane on splits of RING_LONG_SPLIT docs or more): no spills,
+    # topk.ring_smem's bytes and topk.ring_block's shape, 2 blocks an SM
     ring_blocks = {}
-    for q in (32, 256):
-        block = {**ring_occupancy(dev, q, 10), "selection": "narrow, a warp's own",
+    for q, split_len, name in ((32, 0, "q32"), (256, 0, "q256"),
+                               (256, topk.RING_LONG_SPLIT, "q256 long splits")):
+        block = {**ring_occupancy(dev, q, 10, split_len), "selection": "narrow, a warp's own",
                  "engine": "fmaf f32, TMA ring refilled by each slot's last reader"}
-        ring_blocks[f"q{q}"] = block
+        ring_blocks[name] = block
         emit("kernels", case="Q >= 5 pass-1 block", kernel="score_topk_tiles_ring",
-             dtype="torch.float32", q=q, k=10, **block)
+             dtype="torch.float32", q=q, k=10, split_len=split_len, **block)
         if (block["local_bytes"] or block["blocks_per_sm"] < 2
-                or block["smem_bytes"] != ring_smem(q)
-                or (block["block_queries"], block["tile_docs"]) != ring_block(q)):
-            raise AssertionError(f"f32 Q >= 5 ring pass at Q={q}: spills, under 2 blocks an "
-                                 f"SM, or not topk.ring_smem's bytes or ring_block's shape: {block}")
+                or block["smem_bytes"] != ring_smem(q, split_len)
+                or (block["block_queries"], block["tile_docs"]) != ring_block(q, split_len)):
+            raise AssertionError(f"f32 Q >= 5 ring pass at Q={q}, splits of {split_len}: spills, "
+                                 "under 2 blocks an SM, or not topk.ring_smem's bytes or "
+                                 f"ring_block's shape: {block}")
 
     def unit(*shape):
         x = torch.randn(*shape, device=dev, generator=gen)
@@ -479,6 +482,7 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
             raise AssertionError(f"ring pass 1 q{q} k{k}: not the plain per-split top-k")
         emit("kernels", case=f"ring pass-1 lists q{q} k{k}", n=ints.shape[0], d=64,
              n_splits=got[0].shape[1], split_len=split_len, bit_equal=True)
+    long_row = ring_long_splits(card, check, call_plan, topk_bound, seed)
     # bf16 docs at Q >= 5 sum on the tensor cores: exact on integers, in
     # another order than cuBLAS on floats (data from its own generator)
     mma_gen = torch.Generator(device=dev).manual_seed(seed + 2)
@@ -753,11 +757,57 @@ def kernels_phase(card: dict, n_docs: int, seed: int) -> dict:
             "tiles_blocks": tiles_blocks, "stream_blocks": stream_blocks,
             "merge_blocks": merge_blocks, "stream_mma_blocks": mma_blocks,
             "ring_blocks": ring_blocks,
-            "batch_f32": {f"q{q}": timings[(q, torch.float32, 10)] for q in (32, 256)},
+            "batch_f32": {**{f"q{q}": timings[(q, torch.float32, 10)] for q in (32, 256)},
+                          f"q256 n{SERVE_DOCS}": long_row},
             "stream_bf16": {f"q{q} k{k}": timings[(q, torch.bfloat16, k)]
                             for q in (2, 3, 4) for k in (10, 256)},
             "small_batch_launches": small_launches,
             "torch_route": torch_route_rows(card, docs_bf16, queries[32], gen)}
+
+
+SERVE_DOCS = 8_841_823  # the benchmark's MS MARCO-sized index (serve-batch256-msmarco)
+
+
+def ring_long_splits(card: dict, check, call_plan, topk_bound, seed: int) -> dict:
+    """The ring pass's block of long splits (6 docs a lane above 32 queries
+    on splits of ``topk.RING_LONG_SPLIT`` docs or more, the block of the
+    batch searches over the serve index): integer-valued docs bit-equal to
+    the plain version at Q=256 and 257 over 4,400,000 rows of D=128 (splits
+    of 66,688 and 83,072 docs, each split's last tile of 192 ragged), its
+    route asserted by ``call_plan`` and ``RING_LAUNCHES``; then Q=256, k=10
+    over ``SERVE_DOCS`` unit docs (the serve cell's shape) held by ``agree``
+    and timed against the plain version, the bound and the library."""
+    from twotowers_tpu_torch.kernels import topk
+    from twotowers_tpu_torch.kernels.topk import score_topk_cuda
+    from twotowers_tpu_torch.ops.topk_score import score_topk_reference
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)  # leaves the phase's own as it was
+    ints = torch.randint(-2, 3, (4_400_000, 128), device=dev, generator=gen).float()
+    qints = torch.randint(-2, 3, (257, 128), device=dev, generator=gen).float()
+    for q, k in ((256, 10), (257, 14)):
+        split_len = call_plan(ints, q, k)[2]
+        if split_len < topk.RING_LONG_SPLIT or topk.ring_lane_docs(q, split_len) != 6:
+            raise AssertionError(f"q{q} over {ints.shape[0]} rows: splits of {split_len} docs "
+                                 "do not take the ring's block of long splits")
+        check(f"integer-valued q{q} k{k} (ring, splits of {split_len}: 6 docs a lane)", ints,
+              qints[:q], k, exact=True)
+    del ints
+    docs = torch.randn(SERVE_DOCS, 128, device=dev, generator=gen)
+    docs /= docs.norm(dim=1, keepdim=True)
+    queries = torch.randn(256, 128, device=dev, generator=gen)
+    queries /= queries.norm(dim=1, keepdim=True)
+    check("serve index q256 k10 f32 (ring, 6 docs a lane)", docs, queries, 10)
+    bound, bound_by = topk_bound(SERVE_DOCS, 128, 256, 10, torch.float32)
+    row = {"ms": cuda_ms(lambda: score_topk_cuda(docs, queries, 10)),
+           "plain_ms": cuda_ms(lambda: score_topk_reference(docs, queries, 10)),
+           "library_ms": cuda_ms(lambda: torch.topk(queries @ docs.T, 10)),
+           "bound_ms": bound, "bound_by": bound_by,
+           "split_len": call_plan(docs, 256, 10)[2]}
+    emit("kernels", case=f"time q256 torch.float32 k10 n{SERVE_DOCS}", n=SERVE_DOCS, d=128,
+         k=10, **row, card=card["nvidia_smi"])
+    del docs
+    torch.cuda.empty_cache()
+    return row
 
 
 def torch_route_rows(card: dict, docs_bf16, queries, gen) -> list:
@@ -2845,12 +2895,13 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for name, row in topk_row["batch_f32"].items()},
             "engine": "fmaf f32 on a TMA ring refilled by each slot's last reader "
-                      "(score_topk_tiles_ring<QW>)",
+                      "(score_topk_tiles_ring<QW, ND>: ND = 6 docs a lane on long splits)",
             "pass1_blocks": topk_row["ring_blocks"],
             "launches_serve_batches": serve["score_topk_ring_launches"],
-            "check": "integer-valued bit-equal at Q=32, 64 and off 16-byte alignment; pass 1 "
+            "check": "integer-valued bit-equal at Q=32, 64 and off 16-byte alignment, and at "
+                     "Q=256 and 257 on splits of 32,768 docs or more (6 docs a lane); pass 1 "
                      "bit-equal to candidates_reference at Q=32 k=10 and Q=64 k=14; float "
-                     "by agree at Q=32, 33, 256, 257 and D=100",
+                     "by agree at Q=32, 33, 256, 257, D=100 and Q=256 over the serve index",
             "shape": {"n": args.n_docs, "d": 128, "k": 10, "dtype": "float32"}},
         "batch_bf16_tensor_cores": {**{name: {key: row[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

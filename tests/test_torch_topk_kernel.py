@@ -206,7 +206,7 @@ def test_stream_smem_fits_a_block_at_every_width(q, k):
 CONSTANTS = ["STREAM_WIDE_K", "WIDE_K", "STREAM_QUEUE", "STREAM_WARPS", "MAX_K",
              "MAX_SPLITS", "MMA_DEPTH", "TILE_QUEUE", "STREAM_MMA_STAGES", "STREAM_MMA_DEPTH",
              "RING_WARPS", "RING_STAGES", "RING_DEPTH", "RING_SMALL_Q", "RING_LIST",
-             "RING_LANE_DOCS", "PASS_TILES_RING"]
+             "RING_LANE_DOCS", "RING_LONG_SPLIT", "RING_LONG_LANE_DOCS", "PASS_TILES_RING"]
 
 
 @pytest.mark.parametrize("name", CONSTANTS)
@@ -1400,19 +1400,21 @@ def test_ring_plan_is_the_tiles_rule_under_the_ring_block(q, n, splits):
     assert topk.plan(q, n, 132, 2, block_queries, tile_docs)[1] == splits
 
 
-@pytest.mark.parametrize("q,block_queries,tile_docs,nbytes", [
-    (5, 32, 256, 82_992), (32, 32, 256, 82_992), (33, 64, 128, 58_416),
-    (256, 64, 128, 58_416), (257, 64, 128, 58_416)])
-def test_ring_smem_counts_stages_and_lists(q, block_queries, tile_docs, nbytes):
+@pytest.mark.parametrize("q,split_len,block_queries,tile_docs,nbytes", [
+    (5, 0, 32, 256, 82_992), (32, 1 << 20, 32, 256, 82_992), (33, 0, 64, 128, 58_416),
+    (256, 32_767, 64, 128, 58_416), (257, 0, 64, 128, 58_416), (256, 32_768, 64, 192, 74_800),
+    (33, 1 << 20, 64, 192, 74_800)])
+def test_ring_smem_counts_stages_and_lists(q, split_len, block_queries, tile_docs, nbytes):
     """The ring pass's shared bytes (score_topk.cu's ring_smem_q): 1,024 to
     align the ring (TMA's 64-byte swizzle is read off the address), 4
     stages of the tile's doc rows and the block's query rows, 16 floats each
-    ((256 + 32) x 64 bytes up to 32 queries, (128 + 64) x 64 above), 8 warps
-    x 8 lists of 16 values and indices (8,192 bytes), then a full mbarrier
-    and a count of readers a stage (48). Both shapes leave room for 2 blocks
-    an SM, 16 warps (the parent's pass had 12)."""
-    assert topk.ring_block(q) == (block_queries, tile_docs)
-    assert topk.ring_smem(q) == nbytes
+    ((256 + 32) x 64 bytes up to 32 queries, (128 + 64) x 64 above, (192 +
+    64) x 64 above on splits of 32,768 docs or more: 6 docs a lane), 8 warps
+    x a list of 16 values and indices for each of a warp's 8 queries (8,192
+    bytes), then a full mbarrier and a count of readers a stage (48).
+    Each shape leaves room for 2 blocks an SM, 16 warps."""
+    assert topk.ring_block(q, split_len) == (block_queries, tile_docs)
+    assert topk.ring_smem(q, split_len) == nbytes
     assert nbytes == 1024 + 4 * (4 * (tile_docs + block_queries) * 16 + 2 * 8 * 8 * 16) + 48
     assert 2 * (nbytes + BLOCK_RESERVED) <= SM_SHARED
 
@@ -1425,20 +1427,23 @@ def test_ring_stage_layout_is_free_of_bank_conflicts():
     """A stage's doc rows: unit u of row r at float ring_unit(r, u). Each
     quarter-warp of a lane's 16-byte reads (rows lane + 32 jj, one unit)
     and each 8 threads' cp.async copies (row e / 4, unit e % 4 of e = tid
-    + 256 i) fall on the 8 bank groups once; doc jj of a lane is 32 jj rows
-    past doc 0 at every unit, so its reads are one address plus constants;
-    a stage's units are each written once; and the swizzle is TMA's 64-byte
-    one (address bits 4-5 XOR bits 7-8, the ring 1,024-byte aligned)."""
+    + 256 i, in tiles of 192, 256 and 512 rows) fall on the 8 bank groups
+    once; unit u of a row is its unit 0 XOR 4u and doc jj of a lane is 32
+    jj rows past doc 0 at every unit, so its reads are one base (ring_unit
+    of the lane's row, unit 0) XOR a constant plus a constant; a stage's
+    units are each written once; and the swizzle is TMA's 64-byte one
+    (address bits 4-5 XOR bits 7-8, the ring 1,024-byte aligned)."""
     units = topk.RING_DEPTH // 4
     for u in range(units):
         for lanes in (range(8 * j, 8 * j + 8) for j in range(4)):
             for jj in range(8):
                 assert len({_ring_unit(lane + 32 * jj, u) // 4 % 8 for lane in lanes}) == 8
         for lane in range(32):
+            assert _ring_unit(lane, u) == _ring_unit(lane, 0) ^ 4 * u
             for jj in range(8):
                 assert (_ring_unit(lane + 32 * jj, u)
                         == _ring_unit(lane, u) + 32 * jj * topk.RING_DEPTH)
-    for tile_docs in (256, 512):
+    for tile_docs in (192, 256, 512):
         for e0 in range(0, tile_docs * units, 8):
             assert len({_ring_unit(e // units, e % units) // 4 % 8
                         for e in range(e0, e0 + 8)}) == 8
@@ -1451,16 +1456,49 @@ def test_ring_stage_layout_is_free_of_bank_conflicts():
 
 
 @pytest.mark.parametrize("q", [5, 32, 33, 256, 257])
-def test_ring_block_covers_each_query_and_doc_of_a_tile_once(q):
+@pytest.mark.parametrize("split_len", [0, 32_767, 32_768, 1 << 20])
+def test_ring_block_covers_each_query_and_doc_of_a_tile_once(q, split_len):
     """Warp (qw, dw) = (warp % QW, warp / QW) of the 8 holds queries 8 qw ..
-    8 qw + 7 and, lane l, docs 32 RING_LANE_DOCS dw + 32 jj + l of a tile:
-    every (query, doc) pair of the block's queries and tile once."""
-    block_queries, tile_docs = topk.ring_block(q)
-    query_warps, lane_docs = block_queries // 8, topk.RING_LANE_DOCS
+    8 qw + 7 and, lane l, docs 32 ND dw + 32 jj + l of a tile (ND =
+    topk.ring_lane_docs: 4, or 6 above 32 queries on splits of 32,768 docs
+    or more): every (query, doc) pair of the block's queries and tile
+    once."""
+    block_queries, tile_docs = topk.ring_block(q, split_len)
+    query_warps, lane_docs = block_queries // 8, topk.ring_lane_docs(q, split_len)
+    assert lane_docs == (6 if q > 32 and split_len >= 32_768 else 4)
     pairs = [(8 * (w % query_warps) + i, 32 * lane_docs * (w // query_warps) + 32 * jj + lane)
              for w in range(topk.RING_WARPS) for lane in range(32)
              for i in range(8) for jj in range(lane_docs)]
     assert len(set(pairs)) == len(pairs) == block_queries * tile_docs
+
+
+def _ring_wavefronts(offsets, nbytes):
+    """Shared-memory wavefronts of one warp-wide read: the lanes' float
+    offsets, nbytes each; a bank (4 bytes) serves one word a wavefront to
+    every lane that reads it, so a read takes as many wavefronts as its
+    busiest bank has distinct words."""
+    words = {}
+    for at in offsets:
+        for w in range(at, at + nbytes // 4):
+            words.setdefault(w % 32, set()).add(w)
+    return max(len(ws) for ws in words.values())
+
+
+@pytest.mark.parametrize("lane_docs,wavefronts", [(4, 24), (6, 32)])
+def test_ring_unit_product_reads_wavefronts(lane_docs, wavefronts):
+    """A warp's reads of one unit of 4 columns, at the addresses
+    ring_product computes: 8 query reads of 16 bytes (ring_unit(i, u), one
+    address across the warp: a broadcast, one wavefront each) and ND doc
+    reads (lane's base XOR 4u, 32 jj rows on: 32 rows, 4 wavefronts each),
+    for 8 x ND x 4 FFMAs a lane: 24 wavefronts for 128 FFMAs at ND = 4, 32
+    for 192 at 6. A lane reads 16 (8 + ND) bytes a unit, 1.5 bytes an FFMA
+    at ND = 4 and 1.17 at 6."""
+    for u in range(topk.RING_DEPTH // 4):
+        total = sum(_ring_wavefronts([_ring_unit(i, u)] * 32, 16) for i in range(8))
+        total += sum(_ring_wavefronts([(_ring_unit(lane, 0) ^ 4 * u) + 32 * jj * topk.RING_DEPTH
+                                       for lane in range(32)], 16) for jj in range(lane_docs))
+        assert total == wavefronts
+    assert 16 * (8 + lane_docs) / (8 * lane_docs * 4) == {4: 1.5, 6: 14 / 12}[lane_docs]
 
 
 @pytest.mark.parametrize("dtype,q,k,takes", [
@@ -1568,23 +1606,24 @@ def _ring_warp_lists(scores, k, t0s, end, n_docs):
     return [lst[:k] for lst in lists]
 
 
+@pytest.mark.parametrize("lane_docs", [topk.RING_LANE_DOCS, topk.RING_LONG_LANE_DOCS])
 @pytest.mark.parametrize("kind", ["random", "integer", "tied", "signed-zero"])
 @pytest.mark.parametrize("k", [1, 10, 14])
-def test_ring_selection_keeps_each_querys_top_k(kind, k):
-    """The ring's selection, run lane by lane on a warp's 3 tiles (the last
-    cut short by `end`, rows past n_docs masked; the first tile's flood
-    merged by rounds, later survivors by rounds or inserts), then a second
-    doc warp's lists inserted as at the split's end, leaves each query's
-    top-k of its docs by ranks_before, best first: ties to the lower index,
-    -0.0 tied with +0.0."""
+def test_ring_selection_keeps_each_querys_top_k(lane_docs, kind, k):
+    """The ring's selection, run lane by lane on a warp's 3 tiles of 4 or 6
+    docs a lane (the last cut short by `end`, rows past n_docs masked; the
+    first tile's flood merged by rounds, later survivors by rounds or
+    inserts), then a second doc warp's lists inserted as at the split's
+    end, leaves each query's top-k of its docs by ranks_before, best first:
+    ties to the lower index, -0.0 tied with +0.0."""
     rng = np.random.default_rng(k)
-    shape = (3, 8, topk.RING_LANE_DOCS, 32)
+    shape = (3, 8, lane_docs, 32)
     scores = {"random": rng.normal(size=shape), "integer": rng.integers(-2, 3, size=shape),
               "tied": np.ones(shape),
               "signed-zero": np.where(rng.random(shape) < 0.5, -0.0, 0.0)}[kind]
     scores = scores.astype(np.float32)
-    warp_docs = 32 * topk.RING_LANE_DOCS  # a tile of two doc warps
-    end, n_docs = 4 * warp_docs + 200, 4 * warp_docs + 150
+    warp_docs = 32 * lane_docs  # a tile of two doc warps
+    end, n_docs = 4 * warp_docs + warp_docs // 2 + 8, 4 * warp_docs + warp_docs // 4 + 6
     firsts = ([0, 2 * warp_docs, 4 * warp_docs], [warp_docs, 3 * warp_docs, 5 * warp_docs])
     lists = [_ring_warp_lists(scores, k, firsts[0], end, n_docs),
              _ring_warp_lists(scores[:, ::-1], k, firsts[1], end, n_docs)]
@@ -1596,7 +1635,7 @@ def test_ring_selection_keeps_each_querys_top_k(kind, k):
         for w, t0s in enumerate(firsts):
             tiles = scores if w == 0 else scores[:, ::-1]
             for t, t0 in enumerate(t0s):
-                for jj in range(topk.RING_LANE_DOCS):
+                for jj in range(lane_docs):
                     for lane in range(32):
                         doc = t0 + 32 * jj + lane
                         if doc < end:
@@ -1632,6 +1671,21 @@ def test_ring_kernel_is_the_plain_version_bit_for_bit(cuda, q, dim, k, off):
     n = 256 * (150 if dim == 1024 else 600) + off
     docs = torch.randint(-2, 3, (n, dim), device=cuda, generator=gen).float()
     queries = torch.randint(-2, 3, (q, dim), device=cuda, generator=gen).float()
+    _ring_bit_equal(docs, queries, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [64, 1024, 2048])
+@pytest.mark.parametrize("k", [1, 10, 14])
+def test_ring_kernel_over_a_million_docs_is_the_plain_version(cuda, q, k):
+    """The ring pass at N = 1,000,003, D=128 (splits of whole tiles and a
+    ragged last one), Q=64 (one query block of 8 x 1 warps), 1024 (16 of
+    them) and 2048 (32; these two on splits of 32,768 docs or more: 6 docs
+    a lane, tiles of 192, a ragged last tile in every split):
+    integer-valued inputs, the plain version's result bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(q * 31 + k)
+    docs = torch.randint(-2, 3, (1_000_003, 128), device=cuda, generator=gen).float()
+    queries = torch.randint(-2, 3, (q, 128), device=cuda, generator=gen).float()
     _ring_bit_equal(docs, queries, k)
 
 
@@ -1727,12 +1781,14 @@ def test_ring_kernel_float_data_agrees(cuda, q, off):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q", [5, 32, 33, 256])
 @pytest.mark.parametrize("k", [1, 10, 14])
-def test_ring_block_fits_without_spills(cuda, q, k):
-    """Both block shapes of the ring pass: no spills, the shared bytes and
-    the shape of topk.ring_smem and topk.ring_block, and 2 blocks an SM
-    (16 warps)."""
-    block = topk.ring_occupancy(cuda, q, k)
-    assert block["local_bytes"] == 0
-    assert block["smem_bytes"] == topk.ring_smem(q)
-    assert (block["block_queries"], block["tile_docs"]) == topk.ring_block(q)
+@pytest.mark.parametrize("split_len", [0, 1 << 20])
+def test_ring_block_fits_without_spills(cuda, q, k, split_len):
+    """Each block of the ring pass (up to 32 queries; above, on short and on
+    long splits, the last with 6 docs a lane): no spills, at most 128
+    registers, the shared bytes and the shape of topk.ring_smem and
+    topk.ring_block, and 2 blocks an SM (16 warps)."""
+    block = topk.ring_occupancy(cuda, q, k, split_len)
+    assert block["local_bytes"] == 0 and block["registers"] <= 128
+    assert block["smem_bytes"] == topk.ring_smem(q, split_len)
+    assert (block["block_queries"], block["tile_docs"]) == topk.ring_block(q, split_len)
     assert block["blocks_per_sm"] >= 2

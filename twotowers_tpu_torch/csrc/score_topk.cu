@@ -391,8 +391,38 @@
 //    broadcast 16-byte reads of the queries and 4 of the lane's doc rows
 //    for 128 FMAs, the next unit's docs read ahead of this unit's FMAs,
 //    which go column by column so that consecutive FMAs share a doc value
-//    (ptxas reuses its register). 8 docs a lane (64 sums) spill under the
-//    launch bound of 2 blocks an SM.
+//    (ptxas reuses its register).
+//  - Above 32 queries on splits of RING_LONG_SPLIT = 32,768 docs or more
+//    (the serve cell's 8.84M docs at Q=256: 134,016 a split) a lane keeps
+//    RING_LONG_LANE_DOCS = 6 docs (tiles of 192, 74,800 bytes): 14 reads of
+//    16 bytes a unit for 192 FMAs, 1.17 bytes a lane an FMA against 1.5.
+//    Its selection weighs more where a split's first tile (every doc beats
+//    the pad) is a larger share: at k=10 the block of 6 lost on splits of
+//    15,232 docs (N=1M, Q=256: 2.077 ms against 2.011; 6.7% at k=14) and
+//    won from 18,944 on (Q=257: 2.431 against 2.459; at the serve size
+//    33,536 docs: 4.123 against 4.233, 50,304: 5.952 against 6.261, 67,072:
+//    7.781 against 8.285), so the threshold is the power of two below the
+//    shortest split where it won by 2% or more. The plan follows the block
+//    of 4, so a long split's last tile of 192 may be ragged (masked at
+//    `end`).
+//  - What bounds the loop is the bytes a lane reads from shared memory (16
+//    (8 + ND) a unit for 32 ND FMAs), not the wavefronts: "ring product
+//    loop alone" ran at 59% of the FFMA rate with 12 reads a unit, at 60%
+//    with every doc read a broadcast (a unit's wavefronts 24 -> 12), and at
+//    67% where the compiler merged the query reads to 6 a unit or with 8
+//    docs a lane at 1 block an SM (254 registers).
+//  - Tried and kept out: the lanes of a warp as 4 query groups x 8 doc
+//    groups (32 queries x 32 docs a warp, query rows interleaved g + 4 i so
+//    that each read of a unit is one wavefront, 12 for 128 FMAs), its code
+//    not kept: its product loop no faster (1.673 ms against 1.669), and 4
+//    doc warps keeping lists for the same 32 queries made the selection 4x
+//    (Q=256 2.757 ms, 17.58 at the serve size); stages of 2 chunks of 16
+//    columns on long splits (3 in the ring, half the waits, counts and
+//    refills a column): 15.60-15.71 ms at the serve size with 4 docs a lane,
+//    16.85 with 6, against 15.15 with 6 in stages of one; 8 x 8
+//    a lane at 1 block an SM (Q=257 3.69 ms) or by 8-byte reads at 2 (40
+//    bytes of spills, 2.70 ms); the count of a slot's readers by one
+//    atom.acq_rel in place of the two fences (no change).
 //  - The product stays IEEE f32 on the CUDA cores: each (query, doc) sum is
 //    one fmaf chain in ascending column from 0.f, as score_topk_tiles sums
 //    it, over the same zero columns past D (RING_DEPTH = BK: an fmaf of
@@ -421,6 +451,15 @@
 //    after the first ring, no wait, no selection: "ring product loop
 //    alone") 1.667: 59% of the FFMA rate. Rounding the split count down
 //    (one wave at Q=257: 52 splits, not 53) was 2% slower there.
+//  - The long-split block (6 docs a lane): 128 registers, no spills, 2
+//    blocks an SM at 74,800 bytes; SASS: 768 FFMA a stage. At the serve
+//    cell's N = 8,841,823, D=128, k=10, against the parent in one run
+//    (topk_variants.py --ring --serve --against a git archive of the
+//    parent, NVIDIA H100 80GB HBM3, 700.00 W): Q=256 16.517 -> 15.102 ms,
+//    Q=257 20.475 -> 18.618, Q=192 12.428 -> 11.456, Q=128 8.358 -> 7.805;
+//    its product loop alone 13.782 ms at Q=256 (62.8% of the FFMA rate).
+//    At N=1M the blocks of 4 docs are within 1% of the parent's (Q=256
+//    2.013 against 2.030, Q=32 0.352 against 0.355).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -1955,27 +1994,29 @@ constexpr int RING_WARPS = 8;          // warps a block
 constexpr int RING_THREADS = 32 * RING_WARPS;
 constexpr int RING_STAGES = 4;         // stages of the block's ring
 constexpr int RING_DEPTH = 16;         // columns of a stage: 4 units of 16 bytes a row
-constexpr int RING_LANE_DOCS = 4;      // docs a lane multiplies (x 8 queries): a warp's 32 x it
+constexpr int RING_LANE_DOCS = 4;      // docs a lane multiplies (x 8 queries) ...
+constexpr int RING_LONG_SPLIT = 32768; // ... above RING_SMALL_Q on splits of this many docs or
+constexpr int RING_LONG_LANE_DOCS = 6; // more: this many
 constexpr int RING_SMALL_Q = 32;       // Q up to this: 4 warps of queries x 2 of docs, else 8 x 1
 constexpr int RING_LIST = 16;          // places of a query's list in a warp (k <= WIDE_K)
 constexpr int RING_MIN_BLOCKS = 2;     // the launch bound's blocks an SM: 128 registers a thread
 static_assert(RING_STAGES >= 2, "a stage is copied while another is multiplied");
 static_assert(RING_DEPTH == BK, "D is padded to score_topk_tiles' chunks: the same fmaf chains");
-static_assert(RING_LANE_DOCS >= 1 && RING_LANE_DOCS <= 8, "a lane's docs are rows lane + 32 jj");
 static_assert(RING_LIST > WIDE_K && RING_LIST <= 32, "a list lies across a warp's lanes");
 
 // The block of QW warps of queries (8 queries each) x DW warps of docs (32
-// RING_LANE_DOCS docs each): BQ queries against tiles of BN docs, STAGE
+// ND docs each: ND a lane): BQ queries against tiles of BN docs, STAGE
 // floats a stage (the tile's doc rows, then the block's query rows,
 // RING_DEPTH each).
-template <int QW>
+template <int QW, int ND>
 struct Ring {
     static constexpr int DW = RING_WARPS / QW;
-    static constexpr int WARP_DOCS = 32 * RING_LANE_DOCS;
+    static constexpr int WARP_DOCS = 32 * ND;
     static constexpr int BQ = 8 * QW;
     static constexpr int BN = WARP_DOCS * DW;
     static constexpr int STAGE = (BN + BQ) * RING_DEPTH;
     static_assert(QW * DW == RING_WARPS, "the warps tile the block");
+    static_assert(ND >= 1 && ND <= 8, "a lane's docs are rows lane + 32 jj, bits of a byte");
 };
 
 // Float offset in a stage of unit u (columns 4u .. 4u + 3) of doc row r:
@@ -1991,7 +2032,10 @@ constexpr bool ring_rows_apart() {
     for (int u = 0; u < RING_DEPTH / 4; ++u)
         for (int l0 = 0; l0 < 32; l0 += 8) {
             unsigned groups = 0;
-            for (int l = l0; l < l0 + 8; ++l) groups |= 1u << (ring_unit(l, u) / 4 % 8);
+            for (int l = l0; l < l0 + 8; ++l) {
+                groups |= 1u << (ring_unit(l, u) / 4 % 8);
+                if (ring_unit(l, u) != (ring_unit(l, 0) ^ 4 * u)) return false;
+            }
             if (groups != 0xffu) return false;
             for (int jj = 0; jj < 8; ++jj)
                 if (ring_unit(l0 + 32 * jj, u) != ring_unit(l0, u) + 32 * jj * RING_DEPTH)
@@ -1999,7 +2043,8 @@ constexpr bool ring_rows_apart() {
         }
     return true;
 }
-static_assert(ring_rows_apart(), "a quarter-warp's reads meet all 32 banks; doc jj is 32 jj rows on");
+static_assert(ring_rows_apart(), "a quarter-warp's reads meet all 32 banks; unit u of a row is its "
+              "unit 0 XOR 4u; doc jj is 32 jj rows on");
 
 // The ring's mbarriers (shared addresses) and its TMA copies. A wait spins
 // on try_wait until the barrier's phase of that parity has completed.
@@ -2051,48 +2096,50 @@ __device__ __forceinline__ void ring_copy4(unsigned dst, const float* src, const
 
 // One stage's product for a warp: acc[i][jj] (query i, doc jj = row lane +
 // 32 jj of d_rows) gains the stage's RING_DEPTH columns, one fmaf a column
-// in ascending order. For each unit of 4 columns a lane reads its 8
-// queries' 16 bytes (one address across the warp: broadcasts) and its
-// docs' 16 bytes, the next unit's docs ahead of this unit's FMAs; then
-// column by column, doc by doc, the 8 queries: consecutive FMAs share the
-// doc's value (ptxas reuses its register) and a sum's next FMA comes 32 on.
-__device__ __forceinline__ void ring_product(float (&acc)[8][RING_LANE_DOCS], const float* d_rows,
-                                             const float* q_rows, int lane) {
+// in ascending order; d_base is ring_unit(lane, 0). For each unit of 4
+// columns a lane reads its 8 queries' 16 bytes (one address across the
+// warp: broadcasts) and its docs' 16 bytes, the next unit's docs ahead of
+// this unit's FMAs; then column by column, doc by doc, the 8 queries:
+// consecutive FMAs share the doc's value (ptxas reuses its register) and a
+// sum's next FMA comes 8 ND on.
+template <int ND>
+__device__ __forceinline__ void ring_product(float (&acc)[8][ND], const float* d_rows,
+                                             const float* q_rows, int d_base) {
     constexpr int UNITS = RING_DEPTH / 4;
     auto doc = [&](int u, int jj) {
-        return *reinterpret_cast<const float4*>(d_rows + ring_unit(lane, u) + 32 * jj * RING_DEPTH);
+        return *reinterpret_cast<const float4*>(d_rows + (d_base ^ 4 * u) + 32 * jj * RING_DEPTH);
     };  // query rows are swizzled as doc rows: the warp's first is a multiple of 8
-    float4 d[RING_LANE_DOCS];
+    float4 d[ND];
 #pragma unroll
-    for (int jj = 0; jj < RING_LANE_DOCS; ++jj) d[jj] = doc(0, jj);
+    for (int jj = 0; jj < ND; ++jj) d[jj] = doc(0, jj);
 #pragma unroll
     for (int u = 0; u < UNITS; ++u) {
-        float4 q[8], next[RING_LANE_DOCS];
+        float4 q[8], next[ND];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
             q[i] = *reinterpret_cast<const float4*>(q_rows + ring_unit(i, u));
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+        for (int jj = 0; jj < ND; ++jj)
             if (u + 1 < UNITS) next[jj] = doc(u + 1, jj);
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+        for (int jj = 0; jj < ND; ++jj)
 #pragma unroll
             for (int i = 0; i < 8; ++i) acc[i][jj] = fmaf(q[i].x, d[jj].x, acc[i][jj]);
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+        for (int jj = 0; jj < ND; ++jj)
 #pragma unroll
             for (int i = 0; i < 8; ++i) acc[i][jj] = fmaf(q[i].y, d[jj].y, acc[i][jj]);
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+        for (int jj = 0; jj < ND; ++jj)
 #pragma unroll
             for (int i = 0; i < 8; ++i) acc[i][jj] = fmaf(q[i].z, d[jj].z, acc[i][jj]);
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj)
+        for (int jj = 0; jj < ND; ++jj)
 #pragma unroll
             for (int i = 0; i < 8; ++i) acc[i][jj] = fmaf(q[i].w, d[jj].w, acc[i][jj]);
         if (u + 1 < UNITS)
 #pragma unroll
-            for (int jj = 0; jj < RING_LANE_DOCS; ++jj) d[jj] = next[jj];
+            for (int jj = 0; jj < ND; ++jj) d[jj] = next[jj];
     }
 }
 
@@ -2121,7 +2168,8 @@ __device__ __forceinline__ void ring_insert(float& v, int& x, float sv, int sx, 
 // butterfly only where several do: -0 ties with +0 as in ranks_before),
 // kept by lane r with the bits of the lane that held it, and dropped there.
 // Pads (-inf, NO_INDEX) fill a round with no candidate left.
-__device__ __forceinline__ void ring_rounds(float& v, int& x, const float (&s)[RING_LANE_DOCS],
+template <int ND>
+__device__ __forceinline__ void ring_rounds(float& v, int& x, const float (&s)[ND],
                                             unsigned mine, int doc0, int k, int lane) {
     bool own = lane < k;  // the lane's list pair is still a candidate
     float out_v = -INFINITY;
@@ -2130,7 +2178,7 @@ __device__ __forceinline__ void ring_rounds(float& v, int& x, const float (&s)[R
         float bv = own ? v : -INFINITY;
         int bx = own ? x : NO_INDEX, bj = -1;
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) {
+        for (int jj = 0; jj < ND; ++jj) {
             if (((mine >> jj) & 1u) && ranks_before(s[jj], doc0 + 32 * jj, bv, bx)) {
                 bv = s[jj];
                 bx = doc0 + 32 * jj;
@@ -2178,21 +2226,21 @@ __device__ __forceinline__ void ring_rounds(float& v, int& x, const float (&s)[R
 // the inserts would take one dependent round each. __syncwarp alone: no
 // other warp reads these lists before the split ends. Doc indices are ints:
 // N < 2^31.
-__device__ __forceinline__ void ring_select(const float (&acc)[8][RING_LANE_DOCS], float* lv,
-                                            int* lx, int k, int t0, int end, int n_docs, int nq,
-                                            int lane) {
+template <int ND>
+__device__ __forceinline__ void ring_select(const float (&acc)[8][ND], float* lv, int* lx, int k,
+                                            int t0, int end, int n_docs, int nq, int lane) {
     unsigned flood = 0;  // bit i: query i has more than 2k survivors, the same in every lane
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
         float top = MASKED;
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) top = fmaxf(top, acc[i][jj]);
+        for (int jj = 0; jj < ND; ++jj) top = fmaxf(top, acc[i][jj]);
         const float kth_v = lv[i * RING_LIST + k - 1];
         if (!__any_sync(FULL, top >= kth_v) || i >= nq) continue;
         const int kth_i = lx[i * RING_LIST + k - 1];
         unsigned mine = 0;  // bit jj: the lane's doc jj survives
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) {
+        for (int jj = 0; jj < ND; ++jj) {
             const int doc = t0 + 32 * jj + lane;
             const float s = doc < n_docs ? acc[i][jj] : MASKED;
             mine |= (unsigned)(doc < end && ranks_before(s, doc, kth_v, kth_i)) << jj;
@@ -2204,7 +2252,7 @@ __device__ __forceinline__ void ring_select(const float (&acc)[8][RING_LANE_DOCS
         float v = lv[i * RING_LIST + lane % RING_LIST];  // lanes from k on: never read
         int x = lx[i * RING_LIST + lane % RING_LIST];
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) {
+        for (int jj = 0; jj < ND; ++jj) {
             const float s = t0 + 32 * jj + lane < n_docs ? acc[i][jj] : MASKED;
             unsigned b = __ballot_sync(FULL, (mine >> jj) & 1u);
             while (b) {
@@ -2226,10 +2274,10 @@ __device__ __forceinline__ void ring_select(const float (&acc)[8][RING_LANE_DOCS
         const int kth_i = lx[i * RING_LIST + k - 1];
         float v = lv[i * RING_LIST + lane % RING_LIST];
         int x = lx[i * RING_LIST + lane % RING_LIST];
-        float s[RING_LANE_DOCS];  // acc[i], by selects: i is not known at compile time here
+        float s[ND];  // acc[i], by selects: i is not known at compile time here
         unsigned mine = 0;
 #pragma unroll
-        for (int jj = 0; jj < RING_LANE_DOCS; ++jj) {
+        for (int jj = 0; jj < ND; ++jj) {
             s[jj] = acc[0][jj];
 #pragma unroll
             for (int ii = 1; ii < 8; ++ii) s[jj] = i == ii ? acc[ii][jj] : s[jj];
@@ -2251,9 +2299,9 @@ __device__ __forceinline__ void ring_select(const float (&acc)[8][RING_LANE_DOCS
 // the address), the ring, every warp's 8 lists of values and indices, then
 // a full mbarrier (8 bytes) and a count of readers (4) a stage.
 constexpr int RING_ALIGN = 1024;
-template <int QW>
+template <int QW, int ND>
 constexpr size_t ring_smem_q() {
-    return RING_ALIGN + sizeof(float) * ((size_t)RING_STAGES * Ring<QW>::STAGE
+    return RING_ALIGN + sizeof(float) * ((size_t)RING_STAGES * Ring<QW, ND>::STAGE
                                          + 2 * RING_WARPS * 8 * RING_LIST)
          + 12 * RING_STAGES;
 }
@@ -2271,15 +2319,17 @@ constexpr size_t ring_smem_q() {
 // when it runs RING_STAGES stages ahead of the slowest (a single thread
 // that copies for all, waiting for each slot to empty, was slower: 2.53 ms
 // against 2.18 at Q=256). Else (4-byte cp.async copies) every thread copies
-// after a block barrier.
-template <int QW>
+// after a block barrier. The plan cuts splits into tiles of the block of
+// RING_LANE_DOCS docs a lane, so a split's last tile of a wider block may be
+// ragged: its docs past `len` are never voted.
+template <int QW, int ND>
 __global__ void __launch_bounds__(RING_THREADS, RING_MIN_BLOCKS)
 score_topk_tiles_ring(const float* __restrict__ docs, const float* __restrict__ queries,
                       long long n, int n_queries, int dim, int k, long long n_docs,
                       long long split_len, int vec, float* __restrict__ cand_v,
                       int* __restrict__ cand_i, const __grid_constant__ CUtensorMap doc_map,
                       const __grid_constant__ CUtensorMap query_map) {
-    using R = Ring<QW>;
+    using R = Ring<QW, ND>;
     constexpr int TMA_ROWS = R::BN < 256 ? R::BN : 256;  // a TMA box's rows: 256 at most
     static_assert(R::BN % TMA_ROWS == 0 && R::BQ <= 256, "whole boxes a stage");
     extern __shared__ float4 smem4[];
@@ -2322,16 +2372,11 @@ score_topk_tiles_ring(const float* __restrict__ docs, const float* __restrict__ 
 
     // Without TMA a thread copies unit tid % UNITS of doc rows tid / UNITS +
     // APART i of every stage, and of query row tid / UNITS where the block
-    // has one, 4 bytes at a time: its sources and places are set here once.
+    // has one, 4 bytes at a time (its places and sources worked out at each
+    // copy: the TMA path keeps no registers for them).
     constexpr int UNITS = RING_DEPTH / 4, APART = RING_THREADS / UNITS;
     static_assert(R::BN % APART == 0 && APART % 8 == 0,
                   "whole doc copies a thread, APART rows apart in the swizzle's period");
-    const int my_row = tid / UNITS, my_unit = tid % UNITS;
-    const unsigned doc_at = ring_at + 4 * ring_unit(my_row, my_unit);  // copy i: + APART rows
-    const unsigned query_at = ring_at + 4 * ring_unit(R::BN + my_row, my_unit);
-    const float* doc_src = docs + (begin + my_row) * dim + 4 * my_unit;
-    const float* query_src = queries + ((long long)q0 + my_row) * dim + 4 * my_unit;
-    const bool copies_query = my_row < R::BQ, query_live = q0 + my_row < n_queries;
     // stage p: columns RING_DEPTH (p % chunks) on of the tile at row BN (p /
     // chunks), into slot p % RING_STAGES: by TMA from one thread, or by
     // cp.async from every thread
@@ -2348,15 +2393,19 @@ score_topk_tiles_ring(const float* __restrict__ docs, const float* __restrict__ 
             tma_box(at + R::BN * RING_DEPTH * 4, &query_map, d0, q0, bar);
             return;
         }
-        const int cols = dim - d0 - 4 * my_unit;
+        const int my_row = tid / UNITS, my_unit = tid % UNITS;
+        const int col = d0 + 4 * my_unit, cols = dim - col;
         const int rows = len - tile_row - my_row;  // rows this thread's copies may read
-        const float* src = doc_src + (long long)tile_row * dim + d0;
-        const unsigned place = at - ring_at;
+        const float* src = docs + (begin + tile_row + my_row) * dim + col;
+        const unsigned doc_at = at + 4 * ring_unit(my_row, my_unit);
 #pragma unroll
-        for (int i = 0; i < R::BN / APART; ++i)
-            ring_copy4(doc_at + place + i * APART * RING_DEPTH * 4,
-                       src + (long long)i * APART * dim, docs, APART * i < rows, cols);
-        if (copies_query) ring_copy4(query_at + place, query_src + d0, queries, query_live, cols);
+        for (int i = 0; i < R::BN / APART; ++i)  // copy i: APART i rows on
+            ring_copy4(doc_at + i * APART * RING_DEPTH * 4, src + (long long)i * APART * dim, docs,
+                       APART * i < rows, cols);
+        if (my_row < R::BQ)
+            ring_copy4(at + 4 * ring_unit(R::BN + my_row, my_unit),
+                       queries + ((long long)q0 + my_row) * dim + col, queries,
+                       q0 + my_row < n_queries, cols);
         cp_async_arrive(bar);
     };
     if (!vec || tid == 0)
@@ -2364,19 +2413,20 @@ score_topk_tiles_ring(const float* __restrict__ docs, const float* __restrict__ 
 
     const float* d_rows = ring + R::WARP_DOCS * dw * RING_DEPTH;
     const float* q_rows = ring + (R::BN + 8 * qw) * RING_DEPTH;
+    const int d_base = ring_unit(lane, 0);  // the lane's first doc row
     const int live_docs = (int)max(0LL, min(n_docs - begin, (long long)len));  // unmasked
     int got = 0;  // stages multiplied
     for (int t = 0; t < len; t += R::BN) {
-        float acc[8][RING_LANE_DOCS];
+        float acc[8][ND];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < RING_LANE_DOCS; ++j) acc[i][j] = 0.f;
+            for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
         for (int ch = 0; ch < chunks; ++ch) {
             const int slot = got % RING_STAGES;
             mbar_wait(full_at + 8 * slot, (got / RING_STAGES) & 1);  // the stage has landed
             if (nq > 0)
-                ring_product(acc, d_rows + slot * R::STAGE, q_rows + slot * R::STAGE, lane);
+                ring_product(acc, d_rows + slot * R::STAGE, q_rows + slot * R::STAGE, d_base);
             // the slot's last reader copies stage got + RING_STAGES into it
             if (vec) {
                 __syncwarp();
@@ -2771,25 +2821,31 @@ cudaError_t tiles_occupancy(int k, int* blocks_per_sm, int* registers, int* loca
                                                          tiles_smem(k));
 }
 
-// The instantiation of score_topk_tiles_ring that n_queries takes (4 warps
-// of queries up to RING_SMALL_Q, else 8), its shared memory set, and its
-// block's queries and tile's docs.
+// The instantiation of score_topk_tiles_ring that a call of n_queries over
+// splits of split_len docs takes (up to RING_SMALL_Q 4 warps of queries x
+// 2 of docs: 32 queries x 256 docs; else 8 x 1, 64 queries x 128 docs, or
+// x 192 with RING_LONG_LANE_DOCS a lane on splits of RING_LONG_SPLIT docs
+// or more), its shared memory set, its block's queries and tile's docs. The
+// plan follows the block of split_len 0.
 using RingKernel = void (*)(const float*, const float*, long long, int, int, int, long long,
                             long long, int, float*, int*, const CUtensorMap, const CUtensorMap);
 
-template <int QW>
+template <int QW, int ND>
 cudaError_t ring_kernel_q(RingKernel* kernel, size_t* smem, int* block_queries, int* tile_docs) {
-    *kernel = score_topk_tiles_ring<QW>;
-    *smem = ring_smem_q<QW>();
-    *block_queries = Ring<QW>::BQ;
-    *tile_docs = Ring<QW>::BN;
+    *kernel = score_topk_tiles_ring<QW, ND>;
+    *smem = ring_smem_q<QW, ND>();
+    *block_queries = Ring<QW, ND>::BQ;
+    *tile_docs = Ring<QW, ND>::BN;
     return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
-cudaError_t ring_kernel(int n_queries, RingKernel* kernel, size_t* smem, int* block_queries,
-                        int* tile_docs) {
-    return n_queries <= RING_SMALL_Q ? ring_kernel_q<4>(kernel, smem, block_queries, tile_docs)
-                                     : ring_kernel_q<8>(kernel, smem, block_queries, tile_docs);
+cudaError_t ring_kernel(int n_queries, long long split_len, RingKernel* kernel, size_t* smem,
+                        int* block_queries, int* tile_docs) {
+    if (n_queries <= RING_SMALL_Q)
+        return ring_kernel_q<4, RING_LANE_DOCS>(kernel, smem, block_queries, tile_docs);
+    return split_len < RING_LONG_SPLIT
+               ? ring_kernel_q<8, RING_LANE_DOCS>(kernel, smem, block_queries, tile_docs)
+               : ring_kernel_q<8, RING_LONG_LANE_DOCS>(kernel, smem, block_queries, tile_docs);
 }
 
 // The TMA map of a (rows, dim) f32 matrix for the ring: boxes of RING_DEPTH
@@ -2825,7 +2881,7 @@ cudaError_t launch_ring(const void* docs, const void* queries, long long n, int 
     RingKernel kernel;
     size_t smem;
     int block_queries, tile_docs;
-    cudaError_t err = ring_kernel(n_queries, &kernel, &smem, &block_queries, &tile_docs);
+    cudaError_t err = ring_kernel(n_queries, split_len, &kernel, &smem, &block_queries, &tile_docs);
     if (err != cudaSuccess) return err;
     // TMA takes rows that start 16-byte aligned; else every thread copies 4 bytes at a time
     const int vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(docs) % 16 == 0
@@ -2974,16 +3030,16 @@ int score_topk_stream_mma_occupancy(int n_queries, int dim, int k, int* smem_byt
     }
 }
 
-// The same for a score_topk_tiles_ring block of n_queries (f32 docs, k <=
-// WIDE_K), with the queries of its block and the docs of its tile, which
-// the plan follows.
-int score_topk_tiles_ring_occupancy(int n_queries, int k, int* smem_bytes, int* blocks_per_sm,
-                                    int* registers, int* local_bytes, int* block_queries,
-                                    int* tile_docs) {
+// The same for the score_topk_tiles_ring block of n_queries over splits
+// of split_len docs (f32 docs, k <= WIDE_K), with the queries of its block
+// and the docs of its tile; at split_len 0 the block the plan follows.
+int score_topk_tiles_ring_split_occupancy(int n_queries, long long split_len, int k,
+                                          int* smem_bytes, int* blocks_per_sm, int* registers,
+                                          int* local_bytes, int* block_queries, int* tile_docs) {
     if (k < 1 || k > WIDE_K || n_queries < 1) return (int)cudaErrorInvalidValue;
     RingKernel kernel;
     size_t smem;
-    cudaError_t err = ring_kernel(n_queries, &kernel, &smem, block_queries, tile_docs);
+    cudaError_t err = ring_kernel(n_queries, split_len, &kernel, &smem, block_queries, tile_docs);
     if (err != cudaSuccess) return (int)err;
     *smem_bytes = (int)smem;
     cudaFuncAttributes attr;
@@ -2993,6 +3049,14 @@ int score_topk_tiles_ring_occupancy(int n_queries, int k, int* smem_bytes, int* 
     *local_bytes = (int)attr.localSizeBytes;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, RING_THREADS,
                                                               smem);
+}
+
+// The block the plan follows (split_len 0), as above.
+int score_topk_tiles_ring_occupancy(int n_queries, int k, int* smem_bytes, int* blocks_per_sm,
+                                    int* registers, int* local_bytes, int* block_queries,
+                                    int* tile_docs) {
+    return score_topk_tiles_ring_split_occupancy(n_queries, 0, k, smem_bytes, blocks_per_sm,
+                                                 registers, local_bytes, block_queries, tile_docs);
 }
 
 // The same for a pass-2 block over `lists` lists of k: level 1

@@ -69,7 +69,9 @@ STREAM_MMA_STAGE_BYTES = 32 * STREAM_MMA_DEPTH * 2
 RING_WARPS = 8      # score_topk.cu:RING_WARPS, warps of a score_topk_tiles_ring block
 RING_STAGES = 4     # score_topk.cu:RING_STAGES: stages of its ring
 RING_DEPTH = 16     # score_topk.cu:RING_DEPTH: columns of a stage
-RING_LANE_DOCS = 4  # score_topk.cu:RING_LANE_DOCS: docs a lane multiplies by 8 queries
+RING_LANE_DOCS = 4  # score_topk.cu:RING_LANE_DOCS: docs a lane multiplies by 8 queries ...
+RING_LONG_SPLIT = 32_768  # score_topk.cu:RING_LONG_SPLIT: ... above RING_SMALL_Q on splits of
+RING_LONG_LANE_DOCS = 6   # this many docs or more: this many (score_topk.cu)
 RING_ALIGN = 1024   # score_topk.cu:RING_ALIGN: the ring's alignment in shared memory
 RING_SMALL_Q = 32   # score_topk.cu:RING_SMALL_Q: Q up to this takes 4 warps of queries x 2
                     # of docs (32 queries), above it 8 x 1 (64 queries)
@@ -231,23 +233,35 @@ def ring_takes(dtype: torch.dtype, n_queries: int, k: int) -> bool:
     return dtype == torch.float32 and n_queries > 4 and k <= WIDE_K
 
 
-def ring_block(n_queries: int) -> Tuple[int, int]:
-    """(block_queries, tile_docs) of the ``score_topk_tiles_ring`` block
-    that n_queries takes (``score_topk.cu:Ring``): 4 warps of 8 queries x 2
-    warps of 32 ``RING_LANE_DOCS`` docs up to ``RING_SMALL_Q`` queries, else
-    8 x 1."""
+def ring_lane_docs(n_queries: int, split_len: int = 0) -> int:
+    """Docs a lane of the ``score_topk_tiles_ring`` block multiplies (by 8
+    queries) in a call of n_queries over splits of split_len docs
+    (``score_topk.cu:ring_kernel``): ``RING_LONG_LANE_DOCS`` above
+    ``RING_SMALL_Q`` queries on splits of ``RING_LONG_SPLIT`` docs or more,
+    where the product outweighs the selection most, else
+    ``RING_LANE_DOCS``. The plan follows the block of split_len 0, so a
+    long split's last tile may be ragged."""
+    long_split = n_queries > RING_SMALL_Q and split_len >= RING_LONG_SPLIT
+    return RING_LONG_LANE_DOCS if long_split else RING_LANE_DOCS
+
+
+def ring_block(n_queries: int, split_len: int = 0) -> Tuple[int, int]:
+    """(block_queries, tile_docs) of that ``score_topk_tiles_ring`` block
+    (``score_topk.cu:Ring``): 4 warps of 8 queries x 2 warps of 32
+    ``ring_lane_docs`` docs up to ``RING_SMALL_Q`` queries, else 8 x 1."""
     query_warps = 4 if n_queries <= RING_SMALL_Q else RING_WARPS
-    return 8 * query_warps, 32 * RING_LANE_DOCS * (RING_WARPS // query_warps)
+    return (8 * query_warps,
+            32 * ring_lane_docs(n_queries, split_len) * (RING_WARPS // query_warps))
 
 
-def ring_smem(n_queries: int) -> int:
-    """Shared bytes of a ``score_topk_tiles_ring`` block
+def ring_smem(n_queries: int, split_len: int = 0) -> int:
+    """Shared bytes of that ``score_topk_tiles_ring`` block
     (``score_topk.cu:ring_smem_q``): room to align the ring to
     ``RING_ALIGN``, ``RING_STAGES`` stages of the tile's doc rows and the
     block's query rows, ``RING_DEPTH`` floats each, every warp's 8 lists of
     ``RING_LIST`` values and indices, then a full mbarrier (8 bytes) and a
     count of readers (4) a stage."""
-    block_queries, tile_docs = ring_block(n_queries)
+    block_queries, tile_docs = ring_block(n_queries, split_len)
     return RING_ALIGN + 4 * (RING_STAGES * (tile_docs + block_queries) * RING_DEPTH
                              + 2 * RING_WARPS * 8 * RING_LIST) + 12 * RING_STAGES
 
@@ -345,8 +359,8 @@ def _lib() -> ctypes.CDLL:
         occ = lib.score_topk_stream_mma_occupancy
         occ.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 4
         occ.restype = i32
-        occ = lib.score_topk_tiles_ring_occupancy
-        occ.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 6
+        occ = lib.score_topk_tiles_ring_split_occupancy
+        occ.argtypes = [i32, ctypes.c_longlong, i32] + [ctypes.POINTER(i32)] * 6
         occ.restype = i32
         merge = lib.score_topk_merge_launch
         merge.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
@@ -361,7 +375,7 @@ _OCCUPANCY_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes")
 _occupancy: Dict[Tuple[int, bool, int], Dict[str, int]] = {}
 _stream_occupancy: Dict[Tuple[int, bool, int, int, int], Dict[str, int]] = {}
 _stream_mma_occupancy: Dict[Tuple[int, int, int, int], Dict[str, int]] = {}
-_ring_occupancy: Dict[Tuple[int, bool], Dict[str, int]] = {}
+_ring_occupancy: Dict[Tuple[int, Tuple[int, int]], Dict[str, int]] = {}
 
 
 def tiles_occupancy(device: torch.device, dtype: torch.dtype, k: int) -> Dict[str, int]:
@@ -418,18 +432,21 @@ def stream_mma_occupancy(device: torch.device, n_queries: int, dim: int,
     return _stream_mma_occupancy[key]
 
 
-def ring_occupancy(device: torch.device, n_queries: int, k: int) -> Dict[str, int]:
-    """A ``score_topk_tiles_ring`` block for ``n_queries`` (f32 docs, k <=
-    ``WIDE_K``) on the card, as the CUDA runtime reports it: the keys of
-    ``stream_occupancy``, then ``block_queries`` and ``tile_docs``, the
-    block's shape as compiled, which ``plan()`` follows."""
+def ring_occupancy(device: torch.device, n_queries: int, k: int,
+                   split_len: int = 0) -> Dict[str, int]:
+    """A ``score_topk_tiles_ring`` block for ``n_queries`` over splits of
+    ``split_len`` docs (f32 docs, k <= ``WIDE_K``) on the card, as the CUDA
+    runtime reports it: the keys of ``stream_occupancy``, then
+    ``block_queries`` and ``tile_docs``, the block's shape as compiled
+    (``plan()`` follows the block of split_len 0)."""
     if not 1 <= k <= WIDE_K:
         raise ValueError(f"ring_occupancy: the ring pass takes 1 <= k <= {WIDE_K}, got {k}")
-    key = (torch.device(device).index or 0, n_queries <= RING_SMALL_Q)
+    key = (torch.device(device).index or 0, ring_block(n_queries, split_len))
     if key not in _ring_occupancy:
         out = [ctypes.c_int() for _ in range(6)]
         with torch.cuda.device(device):
-            err = _lib().score_topk_tiles_ring_occupancy(n_queries, k, *map(ctypes.byref, out))
+            err = _lib().score_topk_tiles_ring_split_occupancy(n_queries, split_len, k,
+                                                               *map(ctypes.byref, out))
         if err != 0:
             raise RuntimeError(f"score_topk occupancy query failed with cudaError_t {err}")
         keys = _OCCUPANCY_KEYS + ("block_queries", "tile_docs")

@@ -2,7 +2,7 @@
 
     python -m twotowers_tpu_torch.kernels.topk_variants [--against DIR] [--only NAME ...]
                                                         [--k-sweep] [--wide] [--bar-sweep]
-                                                        [--ordered] [--ring]
+                                                        [--ordered] [--ring] [--serve]
 
 Each variant is ``csrc/score_topk.cu`` with one constant or launch bound
 rewritten, compiled by ``nvcc`` (all at once) into ``build/topk_variants/``,
@@ -51,12 +51,16 @@ code ``topk.PASS_TILES_RING``, planned by the block shape its occupancy entry
 reports); a source without ``score_topk_tiles_ring_occupancy`` (the parent
 under ``--against``) runs them on ``score_topk_tiles`` (``PASS_TILES``).
 "ring of 3 / 6 stages" sweep its ring's depth, "ring of 8 / 4 query warps at
-every Q" its block's shape (8 x 1 or 4 x 2 warps of queries x docs), "ring by
+every Q" its block's shape (8 x 1 or 4 x 2 warps of queries x docs), "ring of
+8 x 4 a lane on long splits" and "ring of 8 x 6 a lane on every split above 32
+queries" the docs a lane above 32 queries (``topk.ring_lane_docs``), "ring by
 cp.async" its copies (every thread's 16-byte ``cp.async`` and a block barrier
 a stage, in place of TMA refilled by each slot's last reader), and "split
 count rounded down" its plan; "ring without copies" moves no data after the
 first ring of stages, "ring product loop alone" keeps only the product loop
-(no copy or wait after the first ring, no selection), and "ring clocked"
+(no copy or wait after the first ring, no selection), "ring product loop
+alone, doc reads broadcast" the same with every lane reading lane 0's doc
+rows (a unit's shared-memory wavefronts halved, the FMAs as many), and "ring clocked"
 counts the SM cycles of its warps by phase (the wait for a stage, the copies'
 issue and the count of readers, the product, the selection).
 
@@ -79,7 +83,11 @@ by topic and on one sorted by score: ``make_corpus``); the flags add up,
 and ``--ring`` times ``RING_SHAPES`` (f32 at Q=5, 32, 33, 64, 256 and
 257, k=10, Q=32 and 256 at k=1 and 14, and Q=32 and 256 at k=10 over N =
 250,000 and 65,536: ``score_topk_tiles_ring``'s two block shapes, and its
-splits at the parallel phase's shard and shorter).
+splits at the parallel phase's shard and shorter); ``--serve`` times
+``RING_SERVE_SHAPES`` (f32, k=10, at the serve cell's 8,841,823 docs: Q=64,
+128, 192, 256 and 257, and Q=64 over 6,600,000 and Q=128 over 6,631,367
+docs, splits of 25,088 to 166,912 docs on both sides of
+``topk.RING_LONG_SPLIT``), the corpus made at that N.
 """
 
 from __future__ import annotations
@@ -126,25 +134,32 @@ ORDERED = [(q, dtype, 256, N, corpus) for q in (32, 256)
 RING_SHAPES = [(q, torch.float32, k) for q in (32, 256, 33, 257, 5, 64) for k in (10,)]
 RING_SHAPES += [(q, torch.float32, k) for q in (32, 256) for k in (1, topk.WIDE_K)]
 RING_SHAPES += [(q, torch.float32, 10, n) for q in (32, 256) for n in (250_000, 65_536)]
+# ... at the serve cell's N (--serve): the block of the long splits and the
+# splits on both sides of topk.RING_LONG_SPLIT (Q=64: 33,536 docs a split,
+# over 6,600,000 docs: 25,088; Q=128 over 6,631,367 docs: 50,304, Q=128:
+# 67,072, Q=192: 100,480, Q=256: 134,016, Q=257: 166,912)
+SERVE_N = 8_841_823
+RING_SERVE_SHAPES = [(q, torch.float32, 10, SERVE_N) for q in (64, 128, 192, 256, 257)]
+RING_SERVE_SHAPES[1:1] = [(64, torch.float32, 10, 6_600_000), (128, torch.float32, 10, 6_631_367)]
 TOPICS = 64  # topics of the "topics" corpus
 # the query batches of make_corpus, drawn in this order
-QUERY_COUNTS = (1, 4, 32, 256, 2, 3, 33, 257, 5, 64)
+QUERY_COUNTS = (1, 4, 32, 256, 2, 3, 33, 257, 5, 64, 128, 192)
 
 
-def make_corpus(kind: str, gen: torch.Generator, dev: torch.device):
-    """N unit docs of DIM and queries {Q: (Q, DIM)} for Q in QUERY_COUNTS.
-    "random": i.i.d. directions. "topics": TOPICS topics of N / TOPICS docs
+def make_corpus(kind: str, gen: torch.Generator, dev: torch.device, n: int = N):
+    """n unit docs of DIM and queries {Q: (Q, DIM)} for Q in QUERY_COUNTS.
+    "random": i.i.d. directions. "topics": TOPICS topics of n / TOPICS docs
     each, stored topic by topic (a doc its topic's direction plus noise of
     the same norm), each query near a random topic's direction. "sorted":
     random docs stored by their score against one direction, ascending,
     each query near that direction. A sample of the first docs would give
     the last two a weak bar."""
-    docs = torch.randn(N, DIM, device=dev, generator=gen)
+    docs = torch.randn(n, DIM, device=dev, generator=gen)
     queries = {q: torch.randn(q, DIM, device=dev, generator=gen) for q in QUERY_COUNTS}
     if kind == "topics":
         centers = torch.randn(TOPICS, DIM, device=dev, generator=gen)
         centers /= centers.norm(dim=1, keepdim=True)
-        docs = centers[torch.arange(N, device=dev) * TOPICS // N] + docs / DIM ** 0.5
+        docs = centers[torch.arange(n, device=dev) * TOPICS // n] + docs / DIM ** 0.5
         for q, x in queries.items():
             pick = torch.randint(0, TOPICS, (q,), device=dev, generator=gen)
             queries[q] = centers[pick] + x / DIM ** 0.5
@@ -281,7 +296,7 @@ WIDE_CLOCKED = [
 RING_WAIT = ("            mbar_wait(full_at + 8 * slot, (got / RING_STAGES) & 1);  // the stage has "
              "landed\n")
 RING_PRODUCT = ("            if (nq > 0)\n                ring_product(acc, d_rows + slot * R::STAGE, "
-                "q_rows + slot * R::STAGE, lane);\n")
+                "q_rows + slot * R::STAGE, d_base);\n")
 RING_CLOCKED = [
     CLOCK_DECL, CLOCK_READ,
     (RING_WAIT, "            unsigned c_ = clock();\n" + RING_WAIT
@@ -357,6 +372,17 @@ RING_SELECTION_CUT = (
     "        if (!__any_sync(FULL, top > 1.0e30f && top >= kth_v) || i >= nq) continue;")
 RING_SMALL_Q = f"constexpr int RING_SMALL_Q = {topk.RING_SMALL_Q};"
 RING_STAGES = f"constexpr int RING_STAGES = {topk.RING_STAGES};"
+RING_LONG_DOCS = f"constexpr int RING_LONG_LANE_DOCS = {topk.RING_LONG_LANE_DOCS};"
+RING_LONG_SPLIT = f"constexpr int RING_LONG_SPLIT = {topk.RING_LONG_SPLIT};"
+# the ring's product loop alone: no wait after the first ring, no count of
+# readers (so no copy after it), no score passes 1e30
+RING_LOOP_ALONE = [RING_SELECTION_CUT,
+                   ("            mbar_wait(full_at + 8 * slot",
+                    "            if (got < RING_STAGES) mbar_wait(full_at + 8 * slot"),
+                   ("                if (lane == 0) {\n                    __threadfence_block();",
+                    "                if (lane == 0 && k < 0) {\n"
+                    "                    __threadfence_block();")]
+RING_DOC_BASE = "    const int d_base = ring_unit(lane, 0);"
 
 # name -> (rewrites, plan): a list of (old, new), or a list of such lists,
 # of which the first that fits the source is taken
@@ -453,6 +479,12 @@ VARIANTS = {
                                          topk.plan),
     "ring of 4 query warps at every Q": ([(RING_SMALL_Q, "constexpr int RING_SMALL_Q = 4096;")],
                                          topk.plan),
+    # the docs a lane above 32 queries: 4 on long splits too (the block of
+    # short splits), or 6 on every split
+    "ring of 8 x 4 a lane on long splits": (
+        [(RING_LONG_DOCS, "constexpr int RING_LONG_LANE_DOCS = 4;")], topk.plan),
+    "ring of 8 x 6 a lane on every split above 32 queries": (
+        [(RING_LONG_SPLIT, "constexpr int RING_LONG_SPLIT = 0;")], topk.plan),
     "ring by cp.async": (RING_BY_CP_ASYNC, topk.plan),
     # no data moved after the first ring of stages (later stages complete
     # with 0 bytes over stale tiles): the product, selection and bookkeeping
@@ -460,13 +492,12 @@ VARIANTS = {
     "ring without copies": ([RING_NO_COPIES], topk.plan),
     # ... and with no wait after the first ring and no count of readers (so no
     # copy after it): the product loop alone
-    "ring product loop alone": ([RING_SELECTION_CUT,
-                                 ("            mbar_wait(full_at + 8 * slot",
-                                  "            if (got < RING_STAGES) mbar_wait(full_at + 8 * slot"),
-                                 ("                if (lane == 0) {\n                    __threadfence_block();",
-                                  "                if (lane == 0 && k < 0) {\n"
-                                  "                    __threadfence_block();")],
-                                topk.plan),
+    "ring product loop alone": (RING_LOOP_ALONE, topk.plan),
+    # ... with every lane's doc reads at the rows of lane 0 (one address a
+    # warp's read: a broadcast, a unit's wavefronts 24 -> 12), the FMAs as many
+    "ring product loop alone, doc reads broadcast": (
+        [*RING_LOOP_ALONE, (RING_DOC_BASE, RING_DOC_BASE.replace("(lane, 0)", "(0, 0)"))],
+        topk.plan),
     "ring clocked": (RING_CLOCKED, topk.plan),
     "wide votes only": (WIDE_VOTES_ONLY, topk.plan),
     "wide votes and queueing": (WIDE_SORT_CUT, topk.plan),
@@ -506,6 +537,7 @@ BAR_RULES = {"no bar": None,
 # variants whose output is not the function's: timed, never checked
 CUT = {"stream narrow selection cut", "stream narrow selection and end merge cut",
        "ring without copies", "ring product loop alone",
+       "ring product loop alone, doc reads broadcast",
        "stream mma selection cut", "selection cut", "wide votes only", "wide votes and queueing",
        "wide votes, queueing and sort"}
 # variants made of "against"'s source too, named "<variant> (against)"
@@ -791,10 +823,12 @@ def main() -> int:
                         help="time ORDERED (Q=32 and 256 at k=256 on corpora stored in order)")
     parser.add_argument("--ring", action="store_true",
                         help="time RING_SHAPES (f32 at Q=5 to 257, k=1 to 14: the ring pass)")
+    parser.add_argument("--serve", action="store_true",
+                        help="time RING_SERVE_SHAPES (the ring pass at the serve cell's N)")
     args = parser.parse_args()
     shapes = ((K_SWEEP if args.k_sweep else []) + (WIDE_SHAPES if args.wide else [])
               + (BAR_SWEEP if args.bar_sweep else []) + (ORDERED if args.ordered else [])
-              + (RING_SHAPES if args.ring else []))
+              + (RING_SHAPES if args.ring else []) + (RING_SERVE_SHAPES if args.serve else []))
     shapes = [(*shape, N, "random")[:5] if len(shape) < 4 else (*shape, "random")[:5]
               for shape in shapes or SHAPES]  # (q, dtype, k, n, corpus)
     if not torch.cuda.is_available():
@@ -827,7 +861,7 @@ def main() -> int:
                          (4, 256), (5, K), (5, 256), (32, K), (256, K))}})
     inputs, queries = {}, {}
     for kind in dict.fromkeys(["random"] + [shape[4] for shape in shapes]):
-        docs, queries[kind] = make_corpus(kind, gen, dev)
+        docs, queries[kind] = make_corpus(kind, gen, dev, max(shape[3] for shape in shapes))
         inputs[kind] = {dtype: docs.to(dtype) for dtype in (torch.float32, torch.bfloat16)}
     del docs
 
