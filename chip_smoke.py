@@ -65,7 +65,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
               31 and 5,003, a table 4 bytes off alignment and an output of
               more than 2**31 elements (bit-equal to the plain version),
               with its plan, blocks per SM and a call's host time beside
-              ``F.embedding``'s.
+              ``F.embedding``'s. Then both at an expert layer's dispatch
+              and combine in ``train-moonlight-b512`` (``models/moe.py``):
+              rows of width 2,048, ids that are token positions in expert
+              order, for the cell's passage and query calls (98,304 and
+              16,384 tokens): the dispatch gather bf16 -> bf16 and the
+              combine's backward gather bf16 -> f32 bit-equal to the plain
+              version, the combine's scatter-add f32 -> bf16 and the
+              dispatch's backward scatter-add bf16 -> bf16 bit-equal on
+              integer-valued rows and within the tolerance on float rows;
+              each timed beside the plain version, a library call and its
+              bound.
 6. train   -- the word-vocab configuration of ``bench.py``'s
               ``word_vocab_32k_train`` at full width (word vocab 32,768,
               seq 64, batch 16,384, embedding 64, mean tower 128, tied,
@@ -1044,6 +1054,24 @@ def scatter_error(got, want, g, ids, vocab: int, out_dtype) -> tuple:
     return float(diff.max()), not bool((diff > tol).any())
 
 
+# train-moonlight-b512's expert layer: tokens of a passage call (512 x 192)
+# and of a query call (512 x 32), rows of width 2,048, 6 of 64 experts a
+# token, experts 0-7 held
+MOE_TOKENS, MOE_DIM, MOE_EXPERTS, MOE_HELD, MOE_TOP_K = (98_304, 16_384), 2048, 64, 8, 6
+
+
+def moe_token_ids(n: int, gen: torch.Generator) -> torch.Tensor:
+    """The ids of one expert layer's dispatch as ``MoE.order`` makes them:
+    each of ``n`` tokens picks ``MOE_TOP_K`` of ``MOE_EXPERTS`` experts
+    (uniformly here), and the picks of held experts, ordered by expert
+    (stably, so by token within an expert), give their token positions."""
+    scores = torch.rand(n, MOE_EXPERTS, device=gen.device, generator=gen)
+    chosen = scores.topk(MOE_TOP_K, dim=-1).indices.flatten()
+    key = torch.where(chosen < MOE_HELD, chosen, MOE_HELD)
+    held = int((key < MOE_HELD).sum())
+    return (torch.sort(key, stable=True).indices[:held] // MOE_TOP_K).to(torch.int32)
+
+
 def embed_kernels_phase(card: dict, seed: int) -> dict:
     import torch.nn.functional as F
 
@@ -1235,6 +1263,53 @@ def embed_kernels_phase(card: dict, seed: int) -> dict:
     gather_row["shapes"] = {"#6 exp_pallas_embed2 N 3,145,728 bf16 -> bf16": row,
                             **gather_extra.pop("shapes")}
     gather_row["host_us"] = gather_extra.pop("host_us")
+
+    # an expert layer's dispatch (#3, backward #2) and combine (#2, backward
+    # #3) at train-moonlight-b512's shapes; bounds: the ids, each distinct
+    # token row read once, the rows written (a scatter-add writes every
+    # token's row); the library calls read f32 where the kernel takes bf16
+    scatter_row["moe"], gather_row["moe"] = {}, {}
+    for n in MOE_TOKENS:
+        ids = moe_token_ids(n, gen)
+        a, ids64 = ids.shape[0], ids.long()
+        distinct = int(torch.unique(ids).numel())
+        x = normal(n, MOE_DIM, torch.bfloat16)
+        for case, out_dtype, item in [("dispatch bf16 -> bf16", torch.bfloat16, 2),
+                                      ("combine backward bf16 -> f32", torch.float32, 4)]:
+            got = gather.gather_rows(x, ids, out_dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(got, gather.gather_rows_reference(x, ids, out_dtype)):
+                raise AssertionError(f"gather moe {case} n {n}: not bit-equal")
+            x_lib = x if out_dtype == torch.bfloat16 else x.float()
+            row = {"ids": a, "distinct_tokens": distinct,
+                   "ms": cuda_ms(lambda: gather.gather_rows(x, ids, out_dtype)),
+                   "plain_ms": cuda_ms(lambda: gather.gather_rows_reference(x, ids, out_dtype)),
+                   "library_ms": cuda_ms(lambda: F.embedding(ids64, x_lib))}
+            row["bound_ms"], row["bound_by"] = bytes_bound(
+                a * 4 + distinct * MOE_DIM * 2 + a * MOE_DIM * item)
+            gather_row["moe"][f"{case} n {n}"] = row
+            emit("kernels", kernel="gather_rows", case=f"moe {case}", n=a, d=MOE_DIM, v=n,
+                 bit_equal=True, **row, card=card["nvidia_smi"])
+        for case, g_dtype in [("combine f32 -> bf16", torch.float32),
+                              ("dispatch backward bf16 -> bf16", torch.bfloat16)]:
+            ints = torch.randint(-3, 4, (a, MOE_DIM), device=dev, generator=gen).to(g_dtype)
+            scatter_check(f"moe {case} n {n} integer-valued", ints, ids, n, torch.bfloat16,
+                          exact=True)
+            g = normal(a, MOE_DIM, g_dtype)
+            scatter_check(f"moe {case} n {n}", g, ids, n, torch.bfloat16)
+            g32 = g.float()
+            row = {"ids": a, "distinct_tokens": distinct,
+                   "ms": cuda_ms(lambda: scatter_add.scatter_add_rows(g, ids, n, torch.bfloat16)),
+                   "plain_ms": cuda_ms(lambda: scatter_add.scatter_add_rows_reference(
+                       g, ids, n, torch.bfloat16)),
+                   "library_ms": cuda_ms(lambda: torch.zeros(n, MOE_DIM, device=dev)
+                                         .index_add_(0, ids64, g32))}
+            row["bound_ms"], row["bound_by"] = bytes_bound(
+                a * 4 + a * MOE_DIM * g.element_size() + n * MOE_DIM * 2)
+            scatter_row["moe"][f"{case} n {n}"] = row
+            emit("kernels", kernel="scatter_add_rows", case=f"moe {case} time", n=a, d=MOE_DIM,
+                 v=n, **row, card=card["nvidia_smi"])
+        del x, ints, g, g32
     return {"scatter_add_rows": {"max_abs_err": errs["scatter_add_rows"], **scatter_row},
             "gather_rows": {"max_abs_err": errs["gather_rows"], **gather_row}}
 
@@ -2941,6 +3016,7 @@ def main() -> int:
             "library_ms")},
         "library": "torch.zeros(V, D).index_add_(0, ids.long(), g.float()), g widened beforehand",
         "shape": {**embed_shape, "g": "bfloat16", "ids": "Zipf(1.07)"},
+        "moe": embed_rows["scatter_add_rows"]["moe"],
         "card": card["nvidia_smi"],
     }, {
         "name": "gather_rows", "route": "cuda",
@@ -2963,6 +3039,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for name, row in embed_rows["gather_rows"]["shapes"].items()},
         "host_us": embed_rows["gather_rows"]["host_us"],
+        "moe": embed_rows["gather_rows"]["moe"],
         "pretrained": pretrained["gather"],
         "card": card["nvidia_smi"],
     }]}), flush=True)

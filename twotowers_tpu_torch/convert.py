@@ -14,12 +14,22 @@ The JAX param tree, as nested dicts (and, for the transformer's
                  or {'proj_w', 'proj_b', 'pos', 'final_ln_scale',
                      'final_ln_bias', 'layers': [{'ln1_scale', 'ln1_bias',
                      'q_w', 'q_b', 'k_w', ..., 'ffn2_b'}, ...]}  # transformer
+                 or {'final_norm', 'layers': [{'attn_norm', 'q_w', 'kv_a_w',
+                     'kv_a_norm', 'kv_b_w', 'o_w', 'mlp_norm',
+                     'gate_up_w', 'down_w'}                     # dense layers
+                     or {..., 'router_w', 'router_bias', 'shared_gate_up_w',
+                     'shared_down_w', 'experts_gate_up_w',
+                     'experts_down_w'}, ...]}                    # deepseek_v3
      ['document_tower': same keys, absent when tied]}
 
 JAX linears are ``(in, out)`` and applied as ``x @ w``; ``nn.Linear.weight``
 is ``(out, in)``. JAX convolutions are ``WIO (K, C_in, C_out)``;
 ``nn.Conv1d.weight`` is ``(C_out, C_in, K)``. Both are the reverse of all
-axes, so every such weight is transposed (``.T``) on the way.
+axes, so every such weight is transposed (``.T``) on the way. The
+``deepseek_v3`` tower has no JAX counterpart; its tree keeps the same
+convention (``gate_up_w`` holds gate then up, ``(in, 2 * inner)``), its
+stacked experts are ``(E, in, out)`` on both sides, and the router's
+selection bias, a buffer, is the leaf ``router_bias``.
 
 The optimizer state is optax's, with the moments under the param paths:
 ``{'count', 'mu': tree, 'nu': tree}`` (``ScaleByAdamState``, adam and adamw)
@@ -53,13 +63,28 @@ _TOWER_LEAVES = {
                     "pos": ("pos", False), "final_ln.weight": ("final_ln_scale", False),
                     "final_ln.bias": ("final_ln_bias", False)},
 }
-# a transformer block's parameters, under ``layers.<i>.`` in torch and
-# ``['layers'][i]`` in JAX
+_TOWER_LEAVES["deepseek_v3"] = {"final_norm.weight": ("final_norm", False)}
+# a block's parameters, under ``layers.<i>.`` in torch and ``['layers'][i]``
+# in JAX
 _BLOCK_LEAVES = {
-    **{f"{m}.weight": (f"{m}_w", True) for m in ("q", "k", "v", "o", "ffn1", "ffn2")},
-    **{f"{m}.bias": (f"{m}_b", False) for m in ("q", "k", "v", "o", "ffn1", "ffn2")},
-    **{f"{m}.weight": (f"{m}_scale", False) for m in ("ln1", "ln2")},
-    **{f"{m}.bias": (f"{m}_bias", False) for m in ("ln1", "ln2")},
+    "transformer": {
+        **{f"{m}.weight": (f"{m}_w", True) for m in ("q", "k", "v", "o", "ffn1", "ffn2")},
+        **{f"{m}.bias": (f"{m}_b", False) for m in ("q", "k", "v", "o", "ffn1", "ffn2")},
+        **{f"{m}.weight": (f"{m}_scale", False) for m in ("ln1", "ln2")},
+        **{f"{m}.bias": (f"{m}_bias", False) for m in ("ln1", "ln2")},
+    },
+    "deepseek_v3": {
+        "attn_norm.weight": ("attn_norm", False), "mlp_norm.weight": ("mlp_norm", False),
+        "attn.q_proj.weight": ("q_w", True), "attn.kv_a_proj.weight": ("kv_a_w", True),
+        "attn.kv_a_norm.weight": ("kv_a_norm", False),
+        "attn.kv_b_proj.weight": ("kv_b_w", True), "attn.o_proj.weight": ("o_w", True),
+        "mlp.gate_up.weight": ("gate_up_w", True), "mlp.down.weight": ("down_w", True),
+        "mlp.router.weight": ("router_w", True), "mlp.router_bias": ("router_bias", False),
+        "mlp.shared.gate_up.weight": ("shared_gate_up_w", True),
+        "mlp.shared.down.weight": ("shared_down_w", True),
+        "mlp.experts_gate_up": ("experts_gate_up_w", False),
+        "mlp.experts_down": ("experts_down_w", False),
+    },
 }
 
 
@@ -70,21 +95,23 @@ def _towers(model: TwoTower):
 
 
 def _tower_leaf(arch: str, torch_name: str) -> Tuple[Path, bool]:
-    if arch == "transformer" and torch_name.startswith("layers."):
+    if arch in _BLOCK_LEAVES and torch_name.startswith("layers."):
         _, index, rest = torch_name.split(".", 2)
-        leaf, transposed = _BLOCK_LEAVES[rest]
+        leaf, transposed = _BLOCK_LEAVES[arch][rest]
         return ("layers", int(index), leaf), transposed
     leaf, transposed = _TOWER_LEAVES[arch][torch_name]
     return (leaf,), transposed
 
 
-def _leaves(model: TwoTower) -> Iterator[Tuple[Path, torch.nn.Parameter, bool]]:
-    """(path in the JAX tree, parameter, transposed) for every parameter."""
+def _leaves(model: TwoTower) -> Iterator[Tuple[Path, torch.Tensor, bool]]:
+    """(path in the JAX tree, parameter or buffer, transposed) for every
+    parameter and persistent buffer."""
     yield ("embedding", "table"), model.embedding.table, False
     if model.embedding.pos is not None:
         yield ("embedding", "pos"), model.embedding.pos, False
     for name, tower in _towers(model):
-        for torch_name, param in tower.named_parameters():
+        state = tower.state_dict(keep_vars=True)
+        for torch_name, param in state.items():
             path, transposed = _tower_leaf(model.spec.tower.arch, torch_name)
             yield (name, *path), param, transposed
 

@@ -43,7 +43,7 @@ NEG_INF = -1e30
 
 # archs whose forward takes (B, L, D) token embeddings + ids, not a pooled
 # vector; TwoTower.encode dispatches on this set
-SEQUENCE_ARCHS = frozenset({"cnn", "rnn", "transformer"})
+SEQUENCE_ARCHS = frozenset({"cnn", "rnn", "transformer", "deepseek_v3"})
 
 
 def is_sequence_arch(arch: str) -> bool:

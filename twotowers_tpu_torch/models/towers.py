@@ -2,7 +2,9 @@
 
 The counterpart of ``twotowers_tpu/models/towers.py`` as ``nn.Module``s:
 the pooled towers ``mean`` and ``avg_pool`` here, the sequence towers
-``cnn``, ``rnn`` and ``transformer`` in ``seq_towers.py``. One embedding is
+``cnn``, ``rnn`` and ``transformer`` in ``seq_towers.py``, and
+``deepseek_v3`` (latent attention and experts, no JAX counterpart) in
+``deepseek_tower.py``. One embedding is
 shared by both towers; with tied weights the document tower is the query
 tower. Parameters stay f32; with ``precision: bf16`` the lookup, the
 pooling and the sequence towers' layers run in bf16, and the pooled towers
@@ -13,13 +15,14 @@ widen the pooled vector to f32, which is what JAX's type promotion of
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.core import l2_normalize, masked_mean_pool
 from ..utils.registry import Registry
+from .deepseek_tower import DeepseekV3Tower
 from .embeddings import Embedding, EmbeddingSpec
 from .seq_towers import (
     CNNTower, RNNTower, TransformerTower, _init_linear, _linear, is_sequence_arch)
@@ -43,6 +46,29 @@ class TowerSpec:
     num_layers: int = 2
     num_heads: int = 4
     max_len: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekTowerSpec(TowerSpec):
+    """A ``deepseek_v3`` tower's spec (deepseek_tower.py): the sequence
+    towers' fields and the blocks' own, whose defaults are
+    Moonlight-16B-A3B's. ``experts_held`` is (first, count) of the routed
+    experts each expert layer holds; ``None`` holds them all."""
+
+    first_k_dense: int = 1
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    kv_lora_rank: int = 512
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    experts_held: Optional[Tuple[int, int]] = None
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    routed_scaling_factor: float = 2.446
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +143,16 @@ class AvgPoolTower(nn.Module):
 TOWER_REGISTRY.add("cnn", CNNTower)
 TOWER_REGISTRY.add("rnn", RNNTower)
 TOWER_REGISTRY.add("transformer", TransformerTower)
+TOWER_REGISTRY.add("deepseek_v3", DeepseekV3Tower)
+
+# deepseek_v3 keys of the ``encoder:`` block, each read with its type
+_DEEPSEEK_KEYS = {
+    "first_k_dense": int, "qk_nope_head_dim": int, "qk_rope_head_dim": int,
+    "v_head_dim": int, "kv_lora_rank": int, "intermediate_size": int,
+    "moe_intermediate_size": int, "n_routed_experts": int, "n_shared_experts": int,
+    "num_experts_per_tok": int, "routed_scaling_factor": float, "rope_theta": float,
+    "rms_norm_eps": float,
+}
 
 
 def spec_from_config(config: Dict[str, Any], vocab_size: int) -> TwoTowerSpec:
@@ -126,8 +162,18 @@ def spec_from_config(config: Dict[str, Any], vocab_size: int) -> TwoTowerSpec:
     embedding_cfg = config.get("embedding", {})
     encoder_cfg = config.get("encoder", {})
     emb_spec = embedding_spec_from_config(embedding_cfg, vocab_size)
-    tower_spec = TowerSpec(
-        arch=encoder_cfg.get("arch", "mean"),
+    arch = encoder_cfg.get("arch", "mean")
+    extra: Dict[str, Any] = {}
+    spec_cls = TowerSpec
+    if arch == "deepseek_v3":
+        held = encoder_cfg.get("experts_held")
+        extra = {key: kind(encoder_cfg[key]) for key, kind in _DEEPSEEK_KEYS.items()
+                 if key in encoder_cfg}
+        extra["experts_held"] = None if held is None else (int(held[0]), int(held[1]))
+        spec_cls = DeepseekTowerSpec
+    tower_spec = spec_cls(
+        **extra,
+        arch=arch,
         embedding_dim=emb_spec.embedding_dim,
         hidden_dim=int(encoder_cfg.get("hidden_dim", 128)),
         dropout=float(encoder_cfg.get("dropout", 0.1)),

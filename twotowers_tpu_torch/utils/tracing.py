@@ -23,6 +23,20 @@ is kept per thread. Spans go into a bounded in-memory deque that
 Span names never start with ``bench.`` (a benchmark's own ranges) and never
 equal a kernel's name: trace readers tell the profiler's device copies of
 these ranges from kernels by that.
+
+Work whose cost is on the card has spans on the card's clock too:
+``span(name, device=x, ...)``, with ``x`` the tensor the work is on, also
+records a pair of CUDA events on the current stream around the span; on a
+CPU tensor it records the span's host time instead. The expert layer
+(``models/moe.py``) has ``moe.route``, ``moe.dispatch``, ``moe.experts``
+and ``moe.combine`` so, and the latent attention ``mla``.
+``device_spans()`` waits for the card once and gives each such span with
+its milliseconds; ``device_ms()`` sums them by name. ``count(name,
+value)`` adds a device tensor to the counter ``name`` with no host read
+(``moe.assignments``); ``counters()`` reads their totals once,
+``counter_values()`` their elementwise sums (the assignments by held
+expert). Like spans, device spans and counters record only while a
+profiler runs, and ``clear()`` empties them.
 """
 
 from __future__ import annotations
@@ -54,6 +68,18 @@ class Span(NamedTuple):
         return self.end_ns - self.start_ns
 
 
+class DeviceSpan(NamedTuple):
+    """A span of work on the card: its host interval (``perf_counter_ns``,
+    the clock of ``Span``), attributes, and the milliseconds between its
+    CUDA events (its host time for work on the CPU)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    attrs: Dict[str, Any]
+    ms: float
+
+
 class _NoSpan:
     """What ``span`` returns while no profiler runs: enters and exits."""
 
@@ -75,10 +101,16 @@ def _plain(value: Any) -> Any:
 
 class _OpenSpan:
     __slots__ = ("recorder", "name", "attrs", "span_id", "parent_id", "root_id", "start_ns",
-                 "range")
+                 "range", "device", "events")
 
-    def __init__(self, recorder: "Recorder", name: str, attrs: Dict[str, Any]):
+    def __init__(self, recorder: "Recorder", name: str, attrs: Dict[str, Any],
+                 device: Optional[torch.Tensor] = None):
         self.recorder, self.name, self.attrs = recorder, name, attrs
+        self.device = device is not None
+        self.events = None
+        if self.device and device.is_cuda:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
 
     def __enter__(self):
         stack = self.recorder._stack()
@@ -91,15 +123,24 @@ class _OpenSpan:
         self.start_ns = time.perf_counter_ns()
         self.range = torch.profiler.record_function(self.name)
         self.range.__enter__()
+        if self.events is not None:
+            self.events[0].record()
         return self
 
     def __exit__(self, *exc) -> None:
+        if self.events is not None:
+            self.events[1].record()
         self.range.__exit__(*exc)
         end_ns = time.perf_counter_ns()
         self.recorder._stack().pop()
+        attrs = {k: _plain(v) for k, v in self.attrs.items()}
         self.recorder._spans.append(Span(
             self.name, self.start_ns, end_ns, self.span_id, self.parent_id, self.root_id,
-            threading.get_ident(), {k: _plain(v) for k, v in self.attrs.items()}))
+            threading.get_ident(), attrs))
+        if self.device:
+            self.recorder._device.append(
+                (self.name, self.start_ns, end_ns, attrs,
+                 self.events if self.events is not None else (end_ns - self.start_ns) * 1e-6))
 
 
 class Recorder:
@@ -107,6 +148,9 @@ class Recorder:
 
     def __init__(self, capacity: int = CAPACITY):
         self._spans: collections.deque = collections.deque(maxlen=capacity)
+        # (name, start_ns, end_ns, attrs, (start, end) CUDA events or host ms)
+        self._device: collections.deque = collections.deque(maxlen=capacity)
+        self._counters: Dict[str, torch.Tensor] = {}
         self._ids = itertools.count(1)
         self._local = threading.local()
 
@@ -120,21 +164,76 @@ class Recorder:
         """The finished spans held, oldest first."""
         return list(self._spans)
 
+    def device_spans(self) -> List[DeviceSpan]:
+        """The finished device spans held, oldest first, with their
+        milliseconds; waits for the card once."""
+        held = list(self._device)
+        if any(not isinstance(t, float) for *_, t in held):
+            torch.cuda.synchronize()
+        return [DeviceSpan(name, start, end, attrs,
+                           t if isinstance(t, float) else t[0].elapsed_time(t[1]))
+                for name, start, end, attrs, t in held]
+
+    def count(self, name: str, value: torch.Tensor) -> None:
+        held = self._counters.get(name)
+        value = value.detach().double()
+        self._counters[name] = value if held is None else held + value
+
+    def counter_values(self) -> Dict[str, torch.Tensor]:
+        """Each counter's elementwise sum, copied to the host."""
+        return {name: value.cpu() for name, value in self._counters.items()}
+
+    def counters(self) -> Dict[str, float]:
+        """Each counter's total."""
+        return {name: float(value.sum()) for name, value in self.counter_values().items()}
+
     def clear(self) -> None:
         self._spans.clear()
+        self._device.clear()
+        self._counters.clear()
 
 
 RECORDER = Recorder()
 
 
-def span(name: str, **attrs: Any):
+def span(name: str, device: Optional[torch.Tensor] = None, **attrs: Any):
     """A context that records the span ``name`` into ``RECORDER`` while a
-    profiler runs on this thread, else ``NO_SPAN``."""
-    return _OpenSpan(RECORDER, name, attrs) if _profiler_enabled() else NO_SPAN
+    profiler runs on this thread, else ``NO_SPAN``. With ``device``, the
+    tensor the work is on, it is also a device span: CUDA events on the
+    current stream, or host time where the tensor is on the CPU."""
+    return _OpenSpan(RECORDER, name, attrs, device) if _profiler_enabled() else NO_SPAN
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Add ``value`` elementwise to the counter ``name`` on its device (each
+    call the same shape), while a profiler runs on this thread; no host
+    read."""
+    if _profiler_enabled():
+        RECORDER.count(name, value)
 
 
 def spans() -> List[Span]:
     return RECORDER.spans()
+
+
+def device_spans() -> List[DeviceSpan]:
+    return RECORDER.device_spans()
+
+
+def device_ms() -> Dict[str, float]:
+    """Milliseconds of the device spans held, summed by name."""
+    out: Dict[str, float] = collections.defaultdict(float)
+    for s in RECORDER.device_spans():
+        out[s.name] += s.ms
+    return dict(out)
+
+
+def counters() -> Dict[str, float]:
+    return RECORDER.counters()
+
+
+def counter_values() -> Dict[str, torch.Tensor]:
+    return RECORDER.counter_values()
 
 
 def clear() -> None:
